@@ -1,0 +1,44 @@
+"""Solver presets and start configurations.
+
+A numpy copy of the constants in gato_tpu/api/config.py (which cannot be
+imported without jax): the reference's python/bsqp/config.py knobs.
+"""
+
+import numpy as np
+
+INDY7_START_CONFIGS = {
+    "zero": np.zeros(6),
+    "home": np.zeros(6),
+    "ready": np.array(
+        [-1.096711, -0.09903229, 0.83125766, -0.10907673, 0.49704404, 0.01499449]
+    ),
+}
+
+IIWA14_START_CONFIGS = {
+    "zero": np.zeros(7),
+    "home": np.zeros(7),
+    # elbow-bent, EE at (0.556, 0, 0.335): the benchmark/demo start. The
+    # vertical zero pose is singular (gravity torques vanish, the task
+    # Jacobian loses rank) — warm-started solves there leave several lanes'
+    # PCG legitimately divergent, so it measures NaN-scrubbed degenerate
+    # work instead of real MPC steps.
+    "bent": np.array([0.0, 0.7, 0.0, -1.6, 0.0, 1.0, 0.0]),
+}
+
+# config.py:35-50
+DEFAULT_SOLVER_PARAMS = {
+    "max_sqp_iters": 1,
+    "kkt_tol": 0.001,
+    "max_pcg_iters": 200,
+    "pcg_tol": 1e-4,
+    "solve_ratio": 1.0,
+    "mu": 10.0,
+    "q_cost": 2.0,
+    "qd_cost": 1e-2,
+    "u_cost": 2e-6,
+    "N_cost": 50.0,
+    "q_lim_cost": 0.01,
+    "vel_lim_cost": 0.0,
+    "ctrl_lim_cost": 0.0,
+    "rho": 0.01,
+}

@@ -1,0 +1,112 @@
+"""Batched RK4 plant step: the CUDA kernel csrc/rk4.cu and its plain version.
+
+Port of gato_tpu/ops/pallas_sim.py. `rk4_channels` is the plain PyTorch
+version (the same channel trace the TPU kernel body runs);
+`rk4_step_batched` is the kernel wrapper: on a CUDA tensor it launches
+csrc/rk4.cu (one thread per problem, `substeps` x 4 generated forward
+dynamics calls), on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import load_library
+from ..dynamics import mathshim as ms
+from ..robots.model import RobotModel
+from .merit_fast import _get_cd
+
+CUDA_ROBOTS = ("indy7",)
+
+
+def rk4_channels(cd, q, qd, u, fe, dt, substeps):
+    """RK4 integration on dynamics channels: q/qd/u are nq-length channel
+    lists, fe a 6-length channel list or None."""
+    nq = cd.nq
+    h = dt / substeps
+
+    def deriv(q, qd):
+        cs = [ms.cos(x) for x in q]
+        ss = [ms.sin(x) for x in q]
+        qdd = cd.fd(cs, ss, qd, u, f_ext=fe)
+        return qd, qdd
+
+    def axpy(x, a, y):
+        return [x[i] + a * y[i] for i in range(len(x))]
+
+    for _ in range(substeps):
+        k1q, k1qd = deriv(q, qd)
+        k2q, k2qd = deriv(axpy(q, 0.5 * h, k1q), axpy(qd, 0.5 * h, k1qd))
+        k3q, k3qd = deriv(axpy(q, 0.5 * h, k2q), axpy(qd, 0.5 * h, k2qd))
+        k4q, k4qd = deriv(axpy(q, h, k3q), axpy(qd, h, k3qd))
+        q = [q[i] + (h / 6.0) * (k1q[i] + 2 * k2q[i] + 2 * k3q[i] + k4q[i])
+             for i in range(nq)]
+        qd = [qd[i] + (h / 6.0) * (k1qd[i] + 2 * k2qd[i] + 2 * k3qd[i]
+                                   + k4qd[i])
+              for i in range(nq)]
+    return q, qd
+
+
+def rk4_plain(model: RobotModel, x, u, dt: float, f_ext=None,
+              substeps: int = 1):
+    """rk4_channels on the columns of x (B, nx), u (B, nu), f_ext (B, 6)."""
+    cd = _get_cd(model.key)
+    nq = cd.nq
+    fe = None if f_ext is None else [f_ext[:, i] for i in range(6)]
+    q, qd = rk4_channels(cd, [x[:, i] for i in range(nq)],
+                         [x[:, nq + i] for i in range(nq)],
+                         [u[:, i] for i in range(nq)], fe, dt, substeps)
+    return torch.stack(q + qd, 1)
+
+
+def check_cuda(name, t, shape):
+    if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
+            and tuple(t.shape) == tuple(shape)):
+        raise ValueError(f"{name}: expected a contiguous float32 CUDA tensor "
+                         f"of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def require_cuda_robot(model: RobotModel):
+    if model.name not in CUDA_ROBOTS:
+        raise NotImplementedError(
+            f"no generated CUDA dynamics for {model.name!r}: only "
+            f"{CUDA_ROBOTS} (ROADMAP Queue 1 item 3, iiwa14 code generation)")
+
+
+def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
+                     substeps: int = 1):
+    """Batched RK4 step: x (B, nx), u (B, nu), optional EE-frame wrench
+    f_ext (B, 6) -> (B, nx).
+
+    CUDA kernel: csrc/rk4.cu, replacing gato_tpu/ops/pallas_sim.py::
+    _rk4_kernel. Bound by the straight-line forward dynamics each thread
+    runs (registers and arithmetic; 30 floats in, 12 out per problem); one
+    thread per problem keeps every intermediate in registers."""
+    if x.device.type == "cpu":
+        return rk4_plain(model, x, u, dt, f_ext, substeps)
+    require_cuda_robot(model)
+    B, nx = x.shape
+    check_cuda("x", x, (B, model.nx))
+    check_cuda("u", u, (B, model.nu))
+    if f_ext is not None:
+        check_cuda("f_ext", f_ext, (B, 6))
+    out = torch.empty_like(x)
+    lib = load_library("rk4")
+    fn = lib.gato_rk4_indy7
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), u.data_ptr(),
+             None if f_ext is None else f_ext.data_ptr(), out.data_ptr(), B,
+             dt / substeps, substeps,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rk4 kernel launch failed: CUDA error {err}")
+    rk4_step_batched.launches += 1
+    return out
+
+
+rk4_step_batched.launches = 0
