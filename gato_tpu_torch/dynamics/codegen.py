@@ -206,7 +206,7 @@ def _gen_knot_merit(cd, key, nq):
 def generate(robot: str) -> str:
     """The header text for one robot (trapezoidal integrator, the default
     and the only one the CUDA kernels take)."""
-    model = load_robot(robot, torch.float64)
+    model = load_robot(robot, torch.float64, device="cpu")
     cd = _get_cd(model.key)
     nq = cd.nq
     parts = [

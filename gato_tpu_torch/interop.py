@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .ops.cost import CostParams
-from .robots.model import PLANT_URDFS, RobotModel, from_parsed
+from .robots.model import PLANT_URDFS, RobotModel, check_device, from_parsed
 from .robots.urdf import parse_urdf
 from .solver.types import HyperParams
 
@@ -22,11 +22,12 @@ MODEL_FIELDS = ("R_tree", "p_tree", "axis", "inertia", "joint_limits",
 
 
 def model_from_numpy(name: str, arrays: dict, dtype=torch.float64,
-                     device="cpu") -> RobotModel:
+                     device="cuda") -> RobotModel:
     """The port's RobotModel of plant `name` from the JAX RobotModel's
     arrays ({field: numpy array}, MODEL_FIELDS plus "gravity"). The parsed
     constants come from the same URDF, and they must agree with the arrays:
     the channel trace reads the constants, the tensors carry the arrays."""
+    device = check_device(device)
     parsed = parse_urdf(PLANT_URDFS[name])
     for f in MODEL_FIELDS:
         a = np.asarray(arrays[f], dtype=np.float64)
@@ -45,9 +46,11 @@ def cost_from_numpy(weights: dict) -> CostParams:
 
 
 def state_from_numpy(X, U, lam, x_s, ref, f_ext, rho, drho, mu, pcg_tol,
-                     device="cpu", dtype=torch.float64):
+                     device="cuda", dtype=torch.float64):
     """(X, U, lam, x_s, ref, f_ext, HyperParams) as tensors from numpy
     arrays in the JAX package's layouts."""
+    device = check_device(device)
+
     def t(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 

@@ -1,33 +1,47 @@
-"""The batched SQP solve, one launch per SQP iteration.
+"""The batched SQP solve, one SQP iteration at a time, on three routes.
 
 Port of gato_tpu/ops/pallas_solve.py in its chained form
-(sqp_solve_pallas_chained, the route the TPU headline takes):
+(sqp_solve_pallas_chained) and of the staged body of
+gato_tpu/solver/bsqp.py::solve_batched. One SQP iteration is
 
   sqp_iter_reference  the plain PyTorch version of one launch of the TPU
                       `_solve_kernel` in chained mode: KKT setup, Schur
                       condensation, PCG, dz recovery, step_ok scrub, merit
                       at alpha in {0, 2^-j}, line search and rho schedule;
-  sqp_iter_cuda       the kernel wrapper: csrc/bsqp_iter.cu on a CUDA tensor,
-                      the plain version on a CPU tensor;
-  sqp_solve_chained   the per-iteration loop shared by both: the
-                      whole-batch solve_ratio exit is decided between
-                      iterations, and the exiting iteration's line-search
-                      effects are reverted (the reference breaks after
-                      PCG/dz, before the merit kernel: bsqp.cuh:133-165).
+  sqp_iter_cuda       the whole iteration in one kernel: csrc/bsqp_iter.cu
+                      on a CUDA tensor, the plain version on a CPU tensor;
+  sqp_iter_fused      KKT + Schur + PCG + dz in one kernel (csrc/iter.cu),
+                      then the step_ok scrub, the merit kernel
+                      (csrc/merit.cu) and the line search in torch;
+  sqp_iter_staged     the KKT kernel (csrc/kkt.cu), the Schur condensation
+                      in torch, the PCG kernel (csrc/pcg.cu), dz in torch,
+                      the step_ok scrub, the merit kernel and the line
+                      search: the reference GATO's launch sequence.
+
+The kernel wrappers take their plain versions on CPU tensors, so every
+route runs in plain PyTorch on the CPU. All run under
+
+  sqp_solve_chained   the per-iteration loop: the whole-batch solve_ratio
+                      exit is decided between iterations, and the exiting
+                      iteration's line-search effects are reverted (the
+                      reference breaks after PCG/dz, before the merit
+                      kernel: bsqp.cuh:133-165).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from .._build import load_library
 from ..robots.model import RobotModel
 from ..solver.types import BSQPSettings
 from .cost import CostParams
-from .cuda_sim import check_cuda, require_cuda_robot
+from .cuda_iter import launch_iteration, sqp_iter_core_cuda
+from .cuda_kkt import setup_kkt_batched_cuda
+from .cuda_merit import merit_alphas_batched_cuda
+from .cuda_pcg import pcg_solve_batched_cuda
+from .cuda_sim import check_cuda
 from .kkt_fast import setup_kkt_batched
 from .linesearch import line_search_update
 from .merit_fast import merit_alphas_batched
@@ -70,19 +84,13 @@ class IterStats(NamedTuple):
     ls_step: torch.Tensor  # (B,) accepted alpha, or -1
 
 
-def sqp_iter_reference(model: RobotModel, cp: CostParams, prob: Problem,
-                       st: IterState, settings: BSQPSettings,
-                       seeded: bool) -> tuple[IterState, IterStats]:
-    """One SQP iteration in plain PyTorch, any device. `seeded` False seeds
-    the baseline and warm-start merits from the alpha = 0 merit."""
+def _line_search(merit_fn, model: RobotModel, cp: CostParams,
+                 prob: Problem, st: IterState, settings: BSQPSettings,
+                 seeded: bool, dzx, dzu, lam, pcg_it):
+    """The tail of one iteration after dz: the step_ok scrub, the
+    convergence flags, the merit sweep (merit_fn) at alpha in {0, 2^-j}, the
+    line search and the rho schedule."""
     X, U = st.X, st.U
-    kkt = setup_kkt_batched(model, cp, X, U, prob.x_s, prob.ref, prob.f_ext,
-                            prob.dt, settings.integrator_type)
-    schur = build_schur(kkt, st.rho, model.nq)
-    lam, pcg_it = pcg_solve_batched(
-        schur.S_main, schur.S_lower, schur.P_main, schur.P_lower, schur.gamma,
-        st.lam, prob.pcg_tol, settings.max_pcg_iters, skip=st.conv > 0.5)
-    dzx, dzu = compute_dz(kkt, schur, lam)
     # a diverged step is zeroed for the whole problem: every candidate then
     # equals X and the line search fails with the trajectory untouched
     step_ok = (torch.isfinite(dzx).all((1, 2))
@@ -95,36 +103,68 @@ def sqp_iter_reference(model: RobotModel, cp: CostParams, prob: Problem,
 
     # alpha = 0 (the baseline: the merit of X itself), then 2^-j (merit.cuh:40)
     alphas = [0.0] + [0.5 ** j for j in range(settings.num_alphas)]
-    merits = merit_alphas_batched(model, cp, X, U, dzx, dzu, prob.x_s,
-                                  prob.ref, prob.f_ext, prob.mu, prob.dt,
-                                  alphas, settings.integrator_type)
+    merits = merit_fn(model, cp, X, U, dzx, dzu, prob.x_s, prob.ref,
+                      prob.f_ext, prob.mu, prob.dt, alphas,
+                      settings.integrator_type)
     if seeded:
         mbase, merit0 = st.mbase, st.merit0
     else:
         mbase = merit0 = merits[:, 0]
+    # 2^-j built on the device, exactly (no host-to-device copy)
+    steps = 1.0 / torch.pow(2, torch.arange(settings.num_alphas,
+                                            device=X.device)).to(X.dtype)
     X, U, m_n, step, rho, drho = line_search_update(
-        merits[:, 1:], mbase, torch.tensor(alphas[1:], dtype=X.dtype,
-                                           device=X.device),
-        X, U, dzx, dzu, st.rho, st.drho, settings.adapt_rho)
+        merits[:, 1:], mbase, steps, X, U, dzx, dzu, st.rho, st.drho,
+        settings.adapt_rho)
     return (IterState(X, U, lam, rho, drho, m_n, merit0, conv, sqp),
             IterStats(pcg_it, m_n, step))
 
 
-class _IterArgs(ctypes.Structure):
-    """Mirror of IterArgs in csrc/bsqp_iter.cu."""
-
-    _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "X", "U", "lam", "xs", "ref", "fe", "rho", "drho", "mu", "eps",
-        "mbase", "merit0", "conv", "sqp", "X_o", "U_o", "lam_o", "rho_o",
-        "drho_o", "mbase_o", "merit0_o", "conv_o", "sqp_o", "ls_merit",
-        "ls_step", "pcg_iters", "scratch")]
-        + [(n, ctypes.c_int) for n in (
-            "B", "N", "ref_stride", "max_pcg_iters", "num_alphas",
-            "adapt_rho", "seeded")]
-        + [("dt", ctypes.c_float), ("w", ctypes.c_float * 7)])
+def _staged(kkt_fn, pcg_fn, merit_fn, model, cp, prob, st, settings, seeded):
+    kkt = kkt_fn(model, cp, st.X, st.U, prob.x_s, prob.ref, prob.f_ext,
+                 prob.dt, settings.integrator_type)
+    schur = build_schur(kkt, st.rho, model.nq)
+    lam, pcg_it = pcg_fn(
+        schur.S_main, schur.S_lower, schur.P_main, schur.P_lower, schur.gamma,
+        st.lam, prob.pcg_tol, settings.max_pcg_iters, skip=st.conv > 0.5)
+    dzx, dzu = compute_dz(kkt, schur, lam)
+    return _line_search(merit_fn, model, cp, prob, st, settings, seeded, dzx,
+                        dzu, lam, pcg_it)
 
 
-MAX_KNOTS = 128  # one thread per knot, __launch_bounds__(128)
+def sqp_iter_reference(model: RobotModel, cp: CostParams, prob: Problem,
+                       st: IterState, settings: BSQPSettings,
+                       seeded: bool) -> tuple[IterState, IterStats]:
+    """One SQP iteration in plain PyTorch, any device. `seeded` False seeds
+    the baseline and warm-start merits from the alpha = 0 merit."""
+    return _staged(setup_kkt_batched, pcg_solve_batched, merit_alphas_batched,
+                   model, cp, prob, st, settings, seeded)
+
+
+def sqp_iter_staged(model: RobotModel, cp: CostParams, prob: Problem,
+                    st: IterState, settings: BSQPSettings,
+                    seeded: bool) -> tuple[IterState, IterStats]:
+    """sqp_iter_reference's contract through the kkt, pcg and merit kernels
+    (N <= 1024; the Schur condensation and dz stay torch, as the JAX package
+    leaves them to XLA)."""
+    return _staged(setup_kkt_batched_cuda, pcg_solve_batched_cuda,
+                   merit_alphas_batched_cuda, model, cp, prob, st, settings,
+                   seeded)
+
+
+def sqp_iter_fused(model: RobotModel, cp: CostParams, prob: Problem,
+                   st: IterState, settings: BSQPSettings,
+                   seeded: bool) -> tuple[IterState, IterStats]:
+    """sqp_iter_reference's contract through the iter kernel (KKT + Schur +
+    PCG + dz, N <= 128) and the merit kernel."""
+    dzx, dzu, lam, pcg_it = sqp_iter_core_cuda(
+        model, cp, st.X, st.U, prob.x_s, prob.ref, prob.f_ext, st.lam, st.rho,
+        prob.pcg_tol, st.conv > 0.5, prob.dt, settings.max_pcg_iters,
+        settings.integrator_type)
+    return _line_search(merit_alphas_batched_cuda, model, cp, prob, st,
+                        settings, seeded, dzx, dzu, lam, pcg_it)
+
+
 MAX_ALPHAS = 15  # merit slots in shared memory, alpha = 0 included
 
 
@@ -136,42 +176,23 @@ def sqp_iter_cuda(model: RobotModel, cp: CostParams, prob: Problem,
 
     The kernel replaces gato_tpu/ops/pallas_solve.py::_solve_kernel as
     launched by sqp_solve_pallas_chained: one thread block per problem, one
-    thread per knot. On this card it is bound by registers in the generated
-    per-knot code (which spills) and by the PCG loop's reads of the per-knot
-    12x12 Schur and preconditioner blocks; the blocks live in an
-    element-major global scratch so that neighbouring threads read
+    thread per knot (N <= 128). On this card it is bound by registers in the
+    generated per-knot code (which spills) and by the PCG loop's reads of
+    the per-knot 12x12 Schur and preconditioner blocks; the blocks live in
+    an element-major global scratch so that neighbouring threads read
     neighbouring addresses, and only the PCG vectors live in shared memory.
     """
     if st.X.device.type == "cpu":
         return sqp_iter_reference(model, cp, prob, st, settings, seeded)
-    require_cuda_robot(model)
-    if settings.integrator_type != 2:
-        raise NotImplementedError("the CUDA kernels are generated for the "
-                                  "trapezoidal integrator (integrator_type=2)")
-    B, N, nx = st.X.shape
-    nu = model.nu
-    if not 2 <= N <= MAX_KNOTS or settings.num_alphas > MAX_ALPHAS:
-        raise ValueError(f"bsqp_iter kernel takes 2 <= N <= {MAX_KNOTS} and "
-                         f"num_alphas <= {MAX_ALPHAS}, got N={N}, "
-                         f"num_alphas={settings.num_alphas}")
-    for name, t, shape in (
-            ("X", st.X, (B, N, nx)), ("U", st.U, (B, N - 1, nu)),
-            ("lam", st.lam, (B, N, nx)), ("x_s", prob.x_s, (B, nx)),
-            ("ref", prob.ref, (B, N, prob.ref.shape[-1])),
-            ("f_ext", prob.f_ext, (B, 6)), ("rho", st.rho, (B,)),
-            ("drho", st.drho, (B,)), ("mu", prob.mu, (B,)),
-            ("pcg_tol", prob.pcg_tol, (B,)), ("mbase", st.mbase, (B,)),
-            ("merit0", st.merit0, (B,)), ("conv", st.conv, (B,)),
-            ("sqp", st.sqp, (B,))):
-        check_cuda(name, t, shape)
-    if prob.ref.shape[-1] < 3:
-        raise ValueError("ref needs the EE xyz in its first 3 columns")
-
-    lib = load_library("bsqp_iter")
-    lib.gato_bsqp_knot_floats.restype = ctypes.c_int
-    fn = lib.gato_bsqp_iter_indy7
-    fn.argtypes = [ctypes.POINTER(_IterArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    B = st.X.shape[0]
+    if settings.num_alphas > MAX_ALPHAS:
+        raise ValueError(f"bsqp_iter kernel takes num_alphas <= {MAX_ALPHAS},"
+                         f" got {settings.num_alphas}")
+    for name, t in (("rho", st.rho), ("drho", st.drho), ("mu", prob.mu),
+                    ("pcg_tol", prob.pcg_tol), ("mbase", st.mbase),
+                    ("merit0", st.merit0), ("conv", st.conv),
+                    ("sqp", st.sqp)):
+        check_cuda(name, t, (B,))
 
     def vec():
         return torch.empty(B, dtype=torch.float32, device=st.X.device)
@@ -181,23 +202,17 @@ def sqp_iter_cuda(model: RobotModel, cp: CostParams, prob: Problem,
                     vec(), vec())
     stats = IterStats(torch.empty(B, dtype=torch.int32, device=st.X.device),
                       vec(), vec())
-    scratch = torch.empty(lib.gato_bsqp_knot_floats() * B * N,
-                          dtype=torch.float32, device=st.X.device)
-    ins = (st.X, st.U, st.lam, prob.x_s, prob.ref, prob.f_ext, st.rho,
-           st.drho, prob.mu, prob.pcg_tol, st.mbase, st.merit0, st.conv,
-           st.sqp)
-    outs = (out.X, out.U, out.lam, out.rho, out.drho, out.mbase, out.merit0,
-            out.conv, out.sqp, stats.ls_merit, stats.ls_step,
-            stats.pcg_iters, scratch)
-    args = _IterArgs(*[t.data_ptr() for t in ins + outs],
-                     B, N, prob.ref.shape[-1], settings.max_pcg_iters,
-                     settings.num_alphas, int(settings.adapt_rho),
-                     int(seeded), prob.dt,
-                     (ctypes.c_float * 7)(*cp.weights()))
-    err = fn(ctypes.byref(args),
-             torch.cuda.current_stream(st.X.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bsqp_iter kernel launch failed: CUDA error {err}")
+    launch_iteration(
+        "bsqp_iter", model, cp, settings.integrator_type, prob.dt,
+        dict(X=st.X, U=st.U, lam=st.lam, xs=prob.x_s, ref=prob.ref,
+             fe=prob.f_ext, rho=st.rho, drho=st.drho, mu=prob.mu,
+             eps=prob.pcg_tol, mbase=st.mbase, merit0=st.merit0, conv=st.conv,
+             sqp=st.sqp, X_o=out.X, U_o=out.U, lam_o=out.lam, rho_o=out.rho,
+             drho_o=out.drho, mbase_o=out.mbase, merit0_o=out.merit0,
+             conv_o=out.conv, sqp_o=out.sqp, ls_merit=stats.ls_merit,
+             ls_step=stats.ls_step, pcg_iters=stats.pcg_iters),
+        max_pcg_iters=settings.max_pcg_iters, num_alphas=settings.num_alphas,
+        adapt_rho=settings.adapt_rho, seeded=seeded)
     sqp_iter_cuda.launches += 1
     return out, stats
 
@@ -223,8 +238,8 @@ def _select(carry: IterState, new: IterState, exit_now, it0: bool):
 def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
                       settings: BSQPSettings, X, U, lam, x_s, ref, f_ext,
                       rho, drho, mu, pcg_tol, dt: float):
-    """Run up to settings.max_sqp_iters iterations of `iter_fn`
-    (sqp_iter_cuda or sqp_iter_reference) with the whole-batch exit:
+    """Run up to settings.max_sqp_iters iterations of `iter_fn` (one of the
+    sqp_iter_* functions above) with the whole-batch exit:
     after each iteration, once the number of converged problems reaches
     B * solve_ratio, that iteration's line search is reverted and the solve
     stops. Iteration 0 seeds the baseline merit from the alpha = 0 merit.

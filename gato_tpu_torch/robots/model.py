@@ -86,8 +86,23 @@ def from_parsed(robot: ParsedRobot, name: str, dtype: torch.dtype,
         gravity=cast(gravity), key=key, name=name)
 
 
+def check_device(device) -> torch.device:
+    """The device an entry point builds its tensors on. The entry points
+    default to the card; without one this raises instead of quietly building
+    CPU tensors (which would take the plain route)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch.cuda.is_available() "
+            "is false: pass device=\"cpu\" to build CPU tensors (the plain "
+            "PyTorch route)")
+    return device
+
+
 def load_robot(name_or_path: str, dtype: torch.dtype = torch.float32,
-               device="cpu") -> RobotModel:
-    """Load a built-in plant by name ('indy7', 'iiwa14') or any URDF path."""
+               device="cuda") -> RobotModel:
+    """Load a built-in plant by name ('indy7', 'iiwa14') or any URDF path,
+    on the card unless `device` says otherwise."""
     path = PLANT_URDFS.get(name_or_path, name_or_path)
-    return from_parsed(parse_urdf(path), name_or_path, dtype, device)
+    return from_parsed(parse_urdf(path), name_or_path, dtype,
+                       check_device(device))

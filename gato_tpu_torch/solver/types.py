@@ -1,10 +1,11 @@
 """Solver configuration and statistics contracts.
 
 Port of gato_tpu/solver/types.py. `BSQPSettings` keeps the solver's static
-configuration; the TPU kernel gates of the JAX package (kkt_kernel,
-pcg_kernel, iter_kernel, solve_kernel, fold_merit0) are gone: the route
-follows the device of the tensors. `HyperParams` holds the per-problem
-hyperparameters and `SQPStats` the per-solve statistics, as tensors.
+configuration, with the JAX package's two route gates `solve_kernel` and
+`iter_kernel` ("auto" | "fused" | "off"; solver/bsqp.py::select_route says
+what they choose on the card). The TPU-tuned gates (kkt_kernel, pcg_kernel,
+fold_merit0) are gone. `HyperParams` holds the per-problem hyperparameters
+and `SQPStats` the per-solve statistics, as tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..robots.model import check_device
+
+
+KERNEL_GATES = ("auto", "fused", "off")
 
 
 @dataclass(frozen=True)
@@ -27,6 +33,18 @@ class BSQPSettings:
     # direct block-tridiagonal solve ("btd") is not ported yet
     kkt_tol: float = 1e-4  # accepted for parity; the reference's explicit
     # KKT-tolerance exit is disabled in its solve loop (bsqp.cuh:153)
+    solve_kernel: str = "auto"  # "fused": one whole-iteration kernel per
+    # SQP iteration (bsqp_iter); "off": the per-stage routes; "auto": fused
+    # for N <= 128
+    iter_kernel: str = "auto"  # with solve_kernel off: "fused" runs KKT +
+    # Schur + PCG + dz in one kernel (iter); "off": the staged kernels;
+    # "auto": fused for N <= 128
+
+    def __post_init__(self):
+        for name in ("solve_kernel", "iter_kernel"):
+            if getattr(self, name) not in KERNEL_GATES:
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected "
+                                 f"one of {KERNEL_GATES}")
 
 
 @dataclass(frozen=True)
@@ -40,7 +58,9 @@ class HyperParams:
 
     @staticmethod
     def create(batch_size: int, rho=1e-3, mu=10.0, pcg_tol=1e-5,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
+        device = check_device(device)
+
         def full(v):
             return torch.full((batch_size,), v, dtype=dtype, device=device)
 

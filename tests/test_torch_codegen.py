@@ -86,7 +86,7 @@ def _cols(a):
 
 def test_generated_fd_matches_trace(host_lib):
     x = _inputs(1)
-    cd = _get_cd(load_robot("indy7", torch.float64).key)
+    cd = _get_cd(load_robot("indy7", torch.float64, device="cpu").key)
     q = _cols(x["q"])
     ref = cd.fd([ms.cos(v) for v in q], [ms.sin(v) for v in q], _cols(x["qd"]),
                 _cols(x["u"]), f_ext=_cols(x["fe"]))
@@ -104,7 +104,7 @@ def test_generated_fd_matches_trace(host_lib):
 
 def test_generated_knot_kkt_matches_trace(host_lib):
     x = _inputs(2)
-    model = load_robot("indy7", torch.float64)
+    model = load_robot("indy7", torch.float64, device="cpu")
     cd = _get_cd(model.key)
     like = torch.tensor(x["q"][:, 0])
     A, Bm, c, Q, qv, Rd, rv = kkt_knot_channels_structured(
@@ -129,7 +129,7 @@ def test_generated_knot_kkt_matches_trace(host_lib):
 
 def test_generated_knot_merit_matches_trace(host_lib):
     x = _inputs(3)
-    model = load_robot("indy7", torch.float64)
+    model = load_robot("indy7", torch.float64, device="cpu")
     cd = _get_cd(model.key)
     ref = _knot_parts(cd, model.key, WEIGHTS, _cols(x["q"]), _cols(x["qd"]),
                       _cols(x["u"]), _cols(x["xn"]), _cols(x["r3"]),

@@ -101,7 +101,7 @@ def test_model_from_numpy_refuses_arrays_of_another_robot():
     arrays = {f: np.asarray(getattr(jm, f)) for f in MODEL_FIELDS + ("gravity",)}
     arrays["inertia"] = arrays["inertia"] * 1.01
     with pytest.raises(ValueError, match="inertia"):
-        model_from_numpy("indy7", arrays, dtype=torch.float64)
+        model_from_numpy("indy7", arrays, dtype=torch.float64, device="cpu")
 
 
 def test_port_never_imports_jax():

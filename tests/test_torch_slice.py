@@ -73,7 +73,7 @@ def test_fig8_cycle_matches_jax():
     ts = BSQPSettings(N=N, max_sqp_iters=P["max_sqp_iters"],
                       max_pcg_iters=P["max_pcg_iters"])
     tX, tU, tlam, txs, _, tfe, thp = state_from_numpy(
-        X0, U0, lam0, xs0, np.zeros((B, N, 6)), f_ext, *hp_np)
+        X0, U0, lam0, xs0, np.zeros((B, N, 6)), f_ext, *hp_np, device="cpu")
     port_stats, track = [], []
     for i in range(CYCLES):
         tref = torch.tensor(np.tile(traj[i:i + N], (B, 1, 1)))

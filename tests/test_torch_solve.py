@@ -46,7 +46,7 @@ def _solve_both(problem, max_sqp_iters, solve_ratio=1.0, **override):
                                  solve_ratio)
     X, U, lam, x_s, ref, fe, hp = state_from_numpy(
         a["X"], a["U"], a["lam"], a["x_s"], a["ref"], a["f_ext"], a["rho"],
-        a["drho"], a["mu"], a["pcg_tol"])
+        a["drho"], a["mu"], a["pcg_tol"], device="cpu")
     st = BSQPSettings(N=N, max_sqp_iters=max_sqp_iters, max_pcg_iters=MAX_PCG,
                       solve_ratio=solve_ratio)
     Xo, Uo, lam_o, hpo, stats = solve_batched(tm, st, tcp, hp, X, U, lam, x_s,
@@ -108,7 +108,7 @@ def test_solve_ratio_half_exits_before_the_line_search(problem):
     jm, tm, jcp, tcp, a = problem
     X, U, lam, x_s, ref, fe, hp = state_from_numpy(
         a["X"], a["U"], a["lam"], a["x_s"], a["ref"], a["f_ext"], a["rho"],
-        a["drho"], a["mu"], a["pcg_tol"])
+        a["drho"], a["mu"], a["pcg_tol"], device="cpu")
     kkt = setup_kkt_batched(tm, tcp, X, U, x_s, ref, fe, DT)
     sch = build_schur(kkt, hp.rho, tm.nq)
     # the Schur system solved directly: its residual is far below PCG_ABS_TOL

@@ -2,10 +2,13 @@
 gato_tpu.solver.bsqp.solve_batched_jit, float64, at the fixture of
 tests/test_pallas_solve.py (B=3, N=12), with that test's tolerances.
 
-One XLA compile serves both cases: the 3-iteration solve is compared
-output by output, and its first iteration's statistics are compared with
-the port's 1-iteration solve (the merit after one accepted step, the PCG
-count, the step and the warm-start merit).
+Each test runs on the port's three routes (solver/bsqp.py::select_route:
+the whole-iteration kernel's, the fused-iteration and the staged one), which
+run their kernels' plain versions on the CPU. One XLA compile serves every
+case: the 3-iteration solve is compared output by output, and its first
+iteration's statistics are compared with the port's 1-iteration solve (the
+merit after one accepted step, the PCG count, the step and the warm-start
+merit).
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,8 @@ from gato_tpu_torch.solver.types import BSQPSettings
 from torch_port_helpers import DEFAULT_COST, costs, models
 
 B, N, DT, MAX_PCG = 3, 12, 0.01, 500
+# (solve_kernel, iter_kernel) of the routes "solve", "iter" and "staged"
+ROUTES = [("auto", "auto"), ("off", "auto"), ("off", "off")]
 
 
 @pytest.fixture(scope="module")
@@ -44,13 +49,14 @@ def solved():
                ls_merit=stats.ls_min_merit, ls_step=stats.ls_step_size)
     xla = {k: np.asarray(v) for k, v in xla.items()}
 
-    def port(max_sqp_iters):
+    def port(max_sqp_iters, gates):
         X, U, lam, x_s, ref, fe, thp = state_from_numpy(
             a["X"], a["U"], a["lam"], a["x_s"], a["ref"], a["f_ext"],
             np.asarray(hp.rho), np.asarray(hp.drho), np.asarray(hp.mu),
-            np.asarray(hp.pcg_tol))
+            np.asarray(hp.pcg_tol), device="cpu")
         st = BSQPSettings(N=N, max_sqp_iters=max_sqp_iters,
-                          max_pcg_iters=MAX_PCG)
+                          max_pcg_iters=MAX_PCG, solve_kernel=gates[0],
+                          iter_kernel=gates[1])
         Xo, Uo, lam_o, hpo, stats = solve_batched(tm, st, tcp, thp, X, U, lam,
                                                   x_s, ref, fe, DT)
         return dict(X=Xo, U=Uo, lam=lam_o, rho=hpo.rho,
@@ -62,9 +68,10 @@ def solved():
     return xla, port
 
 
-def test_solve_matches_xla_solver_3_iterations(solved):
+@pytest.mark.parametrize("gates", ROUTES)
+def test_solve_matches_xla_solver_3_iterations(solved, gates):
     xla, port = solved
-    p = {k: v.numpy() for k, v in port(3).items()}
+    p = {k: v.numpy() for k, v in port(3, gates).items()}
     np.testing.assert_allclose(p["X"], xla["X"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(p["U"], xla["U"], rtol=1e-6, atol=1e-6)
     scale = max(1.0, np.abs(xla["lam"]).max())
@@ -80,9 +87,10 @@ def test_solve_matches_xla_solver_3_iterations(solved):
     np.testing.assert_array_equal(p["ls_step"], xla["ls_step"])
 
 
-def test_solve_1_iteration_matches_xla_first_iteration(solved):
+@pytest.mark.parametrize("gates", ROUTES)
+def test_solve_1_iteration_matches_xla_first_iteration(solved, gates):
     xla, port = solved
-    p = {k: v.numpy() for k, v in port(1).items()}
+    p = {k: v.numpy() for k, v in port(1, gates).items()}
     np.testing.assert_allclose(p["merit0"], xla["merit0"], rtol=1e-8)
     # one accepted step: the final merit is the first line search's merit
     np.testing.assert_allclose(p["merit_final"], xla["ls_merit"][0], rtol=1e-8)

@@ -27,7 +27,8 @@ def models(robot: str):
     """(JAX model, port model) in float64 from the same URDF."""
     jm = jax_load_robot(robot, dtype=jnp.float64)
     arrays = {f: np.asarray(getattr(jm, f)) for f in MODEL_FIELDS + ("gravity",)}
-    return jm, model_from_numpy(robot, arrays, dtype=torch.float64)
+    return jm, model_from_numpy(robot, arrays, dtype=torch.float64,
+                               device="cpu")
 
 
 def costs(**weights):
