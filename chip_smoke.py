@@ -17,9 +17,15 @@ cycle.
 
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ (one nvcc each, all
 at once), holds each against its plain PyTorch version on the steady-state
-input (kkt, pcg and merit at N=256 too), counts each path's launches with
-the counts set to 0 just before it, times every route's cycle with CUDA
-events, checks lane 0's fig-8 tracking error on every N=32 route, and
+input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
+and 128, B=512, the shared layout's last N and the global layout, where
+the limits give way to float32's own measured noise), prints each
+iteration-kernel
+variant's G, shared memory, blocks per SM and ptxas line, times bsqp_iter
+and iter in every variant (global layout, shared at G = 1, 2, 4) at N=32
+and N=64 with and without the Krylov loop, counts each path's launches
+with the counts set to 0 just before it, times every route's cycle with
+CUDA events, checks lane 0's fig-8 tracking error on every N=32 route, and
 computes each kernel's bound from this run's inputs.
 
     python3 chip_smoke.py
@@ -30,6 +36,7 @@ two lines of standard output are the kernels' JSON record and
 line before them.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -47,8 +54,10 @@ from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.ops.cost import CostParams
-from gato_tpu_torch.ops.cuda_iter import (sqp_iter_core_cuda,
-                                          sqp_iter_core_reference)
+from gato_tpu_torch.ops.cuda_iter import (iteration_variant, smem_bytes,
+                                          sqp_iter_core_cuda,
+                                          sqp_iter_core_reference,
+                                          variant_resources)
 from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda
@@ -66,6 +75,13 @@ from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 
 N, B, DT, K, WARMUP = 32, 512, 0.01, 50, 6
 N_LONG, B_LONG, K_LONG = 256, 64, 10
+# the iteration kernels' variants, (layout, G): the earlier global-scratch
+# layout and the shared layout at 1, 2, 4 threads per knot; timed at N=32
+# and N_WIDE (B=512), and held against their plain versions at
+# CHECK_HORIZONS (B=512) in the variant that each N takes: the shared
+# layout's last N, the global layout
+VARIANTS = (("global", 1), ("shared", 1), ("shared", 2), ("shared", 4))
+N_WIDE, CHECK_HORIZONS = 64, (64, 128)
 RK4_RTOL = 1e-5
 # bsqp_iter against its plain version (float32, identical input): the
 # fraction of lanes with the same step and with a PCG count within
@@ -76,6 +92,10 @@ RK4_RTOL = 1e-5
 # may be at most F64_FACTOR times as far off as the float32 plain version.
 STEP_SAME_MIN, TRAJ_RTOL, MERIT_RTOL, MERIT0_RTOL = 0.99, 1e-3, 1e-3, 1e-5
 PCG_SLACK, F64_FACTOR = 3, 2.0
+# the long horizons' limits (noise_limits): a share of lanes never below
+# SHARE_FLOOR, a normwise limit never above NOISE_CAP
+SHARE_FLOOR, NOISE_CAP = 0.8, 5 * TRAJ_RTOL
+LIMIT_NOTE = {False: "", True: "; the limits: float32's own noise where larger, noise_limits"}
 TRACK_MAX_M, TRACK_REL = 0.1, 0.10
 # kkt: each KKTSystem tensor within KKT_RTOL of its largest |value|
 # (identical float32 inputs; only the order of operations differs).
@@ -159,6 +179,109 @@ def generated_op_counts():
         counts[name] = (sum(body.count(t) for t in (" + ", " - ", " * ", " / "))
                         + len(re.findall(r"\bg(?:sqrt|sin|cos|log|abs|max)\(", body)))
     return counts
+
+
+def variant_name(n):
+    layout, g = iteration_variant(n)
+    return f"{layout} layout, G={g}"
+
+
+def ptxas_variants(name):
+    """{(layout, G): ptxas' register and spill lines} of the iteration
+    kernel variants compiled in csrc/<name>.cu."""
+    out, key = {}, None
+    for line in _build.ptxas_report(name).splitlines():
+        m = re.search(r"iteration_kernelILb[01]ELNS_6BlocksE(\d)ELi(\d)E", line)
+        if m:
+            key = (("global", "shared")[int(m.group(1))], int(m.group(2)))
+            out[key] = []
+        elif key is not None:
+            out[key].append(line.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def report_variants():
+    """Each variant's G, shared memory, resident blocks per SM and ptxas
+    line at N=32 and N_WIDE; and the library's shared-memory byte count
+    against its Python mirror (ops/cuda_iter.py::smem_bytes) at every N."""
+    for name in ("bsqp_iter", "iter"):
+        bad = [(n, v) for n in range(2, 129) for v in VARIANTS
+               if variant_resources(name, n, *v)[0] != smem_bytes(n, *v)]
+        if bad:
+            raise RuntimeError(f"{name}: smem_bytes differs from the library at {bad[:4]}")
+        px = ptxas_variants(name)
+        for n in (N, N_WIDE):
+            for v in VARIANTS:
+                nb, per_sm = variant_resources(name, n, *v)
+                taken = " (the variant N takes)" if iteration_variant(n) == v else ""
+                log(f"[variant] {name} N={n} {v[0]} layout G={v[1]}{taken}: "
+                    f"{nb} bytes of shared memory, {per_sm} blocks per SM "
+                    f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+                    f"{v[1] * 32 * ((n + 31) // 32)} threads; ptxas: {px[v]}")
+    log("[variant] bytes of shared memory equal ops/cuda_iter.py::smem_bytes "
+        "for every variant at N = 2..128")
+
+
+def time_variants(f, state, i, card):
+    """ms per launch of bsqp_iter and iter in every variant on one
+    steady-state input, and each with max_pcg_iters=0: phases A-C, D's
+    set-up and E-G without the Krylov loop, so the loop's share is the
+    difference (the phase split by a runtime argument, no measurement
+    build). Two rounds in opposite orders, their mean."""
+    X, U, lam, x_s = state
+    zero = torch.zeros(f.B, device=f.dev)
+    prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
+    s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
+    no_loop = dataclasses.replace(f.settings, max_pcg_iters=0)
+    skip = torch.zeros(f.B, dtype=torch.bool, device=f.dev)
+    core = (X, U, x_s, f.ref(i), f.f_ext, lam, f.hp.rho, f.hp.pcg_tol, skip, DT)
+
+    def calls(v):
+        return dict(
+            bsqp_iter=lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings,
+                                            seeded=False, variant=v),
+            bsqp_iter_no_loop=lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, no_loop,
+                                                    seeded=False, variant=v),
+            iter=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, P["max_pcg_iters"],
+                                            variant=v),
+            iter_no_loop=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, 0, variant=v))
+
+    rounds = {v: {} for v in VARIANTS}
+    for order in (VARIANTS, VARIANTS[::-1]):
+        for v in order:
+            for k, fn in calls(v).items():
+                rounds[v].setdefault(k, []).append(event_ms(fn, 10))
+    ms = {v: {k: statistics.mean(t) for k, t in d.items()} for v, d in rounds.items()}
+    for v in VARIANTS:
+        m = ms[v]
+        taken = " (the variant this N takes)" if iteration_variant(f.N) == v else ""
+        log(f"[layout] {card}: N={f.N} B={f.B} {v[0]} layout G={v[1]}{taken}: "
+            f"bsqp_iter {m['bsqp_iter']:.4f} ms, iter {m['iter']:.4f} ms; split: "
+            f"without the Krylov loop {m['bsqp_iter_no_loop']:.4f} ms (iter "
+            f"{m['iter_no_loop']:.4f}), so the loop {m['bsqp_iter'] - m['bsqp_iter_no_loop']:.4f} "
+            f"ms, F-G {m['bsqp_iter_no_loop'] - m['iter_no_loop']:.4f} ms, A-C + D's "
+            f"set-up + E {m['iter_no_loop']:.4f} ms; rounds "
+            + json.dumps({k: [round(t, 4) for t in ts] for k, ts in rounds[v].items()}))
+    return ms
+
+
+def same_bits_as_global(f, state, i):
+    """At N <= 32 (one warp) the shared layout at G=1 sums every matvec row
+    and every dot product in the global layout's order, so bsqp_iter's
+    outputs must equal the global layout's bit for bit."""
+    X, U, lam, x_s = state
+    zero = torch.zeros(f.B, device=f.dev)
+    prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
+    s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
+    outs = [sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings, seeded=False, variant=v)
+            for v in (("global", 1), ("shared", 1))]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((*outs[0][0], *outs[0][1]),
+                                                 (*outs[1][0], *outs[1][1])))
+    log(f"[layout] N={f.N} B={f.B}: bsqp_iter in the shared layout at G=1 equals "
+        f"the global layout bit for bit: {same}")
+    if not same:
+        raise RuntimeError("the shared layout at G=1 differs from the global layout")
 
 
 def normwise(a, b):
@@ -281,12 +404,25 @@ def work_trace(pcg, step):
                 steps_accepted_frac=round(float((step[:8] > 0).mean()), 3))
 
 
-def compare_iteration(f, state, i):
-    """One SQP iteration, kernel against its plain version (and both against
-    the plain version in float64), on the identical steady-state input."""
+def compare_iteration(f, state, i, noise_floor=False):
+    """One SQP iteration, kernel (the variant that f.N takes) against its
+    plain version (and both against the plain version in float64), on the
+    identical steady-state input.
+
+    The float64 rule is applied lane by lane, as compare_pcg applies it: on
+    a lane where the kernel's step equals the float64 step, its X and merit
+    distance from float64 at most F64_FACTOR times the float32 plain
+    version's largest distance over the batch (floors TRAJ_RTOL and
+    MERIT_RTOL), and on every lane its PCG count within F64_FACTOR times
+    plain32's largest count difference (floor PCG_SLACK); it must hold on
+    STEP_SAME_MIN of the lanes. A batch maximum fails by chance on one
+    sensitive lane, and phase D's dot products sum in another order in the
+    shared layout. The other limits are the fixed ones; with noise_floor
+    (the long horizons) they give way to float32's own noise where that is
+    larger (noise_limits)."""
     X, U, lam, x_s = state
     m = f.model
-    zero = torch.zeros(B, device=f.dev)
+    zero = torch.zeros(f.B, device=f.dev)
     prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
     s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
     ko, ks = sqp_iter_cuda(m, f.cp, prob, s0, f.settings, seeded=False)
@@ -319,44 +455,59 @@ def compare_iteration(f, state, i):
         kernel_pcg_sum=int(ks.pcg_iters.sum()),
     )
     # the float32 noise floor: each float32 arm against the float64 plain
-    # version on the same input
+    # version on the same input, lane by lane
+    lanes = {}
     for tag, (oa, sa) in (("kernel", (ko, ks)), ("plain32", (ro, rs))):
         s = sa.ls_step.double() == s64.ls_step
-        res[f"{tag}_f64_X_rel"] = normwise(oa.X[s], o64.X[s])
-        res[f"{tag}_f64_merit_rel_max"] = (
-            (sa.ls_merit.double() - s64.ls_merit).abs() / s64.ls_merit.abs())[s].max().item()
-        res[f"{tag}_f64_pcg_max_diff"] = int((sa.pcg_iters - s64.pcg_iters).abs().max())
-    log("[compare] bsqp_iter kernel vs sqp_iter_reference (float32, identical "
-        "steady-state input):")
+        lanes[tag] = (s, lane_rel(oa.X, o64.X),
+                      (sa.ls_merit.double() - s64.ls_merit).abs() / s64.ls_merit.abs(),
+                      (sa.pcg_iters - s64.pcg_iters).abs())
+        res[f"{tag}_f64_X_rel"] = lanes[tag][1][s].max().item()
+        res[f"{tag}_f64_merit_rel_max"] = lanes[tag][2][s].max().item()
+        res[f"{tag}_f64_pcg_max_diff"] = int(lanes[tag][3].max())
+    ks_, kx, km, kc = lanes["kernel"]
+    f64_ok = ((~ks_ | ((kx <= max(TRAJ_RTOL, F64_FACTOR * res["plain32_f64_X_rel"]))
+                       & (km <= max(MERIT_RTOL, F64_FACTOR * res["plain32_f64_merit_rel_max"]))))
+              & (kc <= max(PCG_SLACK, F64_FACTOR * res["plain32_f64_pcg_max_diff"])))
+    res["f64_rule_frac"] = f64_ok.double().mean().item()
+    lim = dict(steps=STEP_SAME_MIN, counts=STEP_SAME_MIN, X_rel=TRAJ_RTOL,
+               U_rel=TRAJ_RTOL)
+    if noise_floor:
+        # plain32's own noise on the compared lanes where its step and count
+        # match float64's
+        quiet = (same & (rs.ls_step.double() == s64.ls_step)
+                 & ((rs.pcg_iters - s64.pcg_iters).abs() <= PCG_SLACK))
+        lim = noise_limits((rs.ls_step, s64.ls_step), (rs.pcg_iters, s64.pcg_iters),
+                           dict(X_rel=(ro.X[quiet], o64.X[quiet]),
+                                U_rel=(ro.U[quiet], o64.U[quiet])))
+    res["limits"] = lim
+    log(f"[compare] bsqp_iter kernel ({variant_name(f.N)}) vs sqp_iter_reference "
+        f"(float32, N={f.N} B={f.B}, identical steady-state input):")
     log(f"  identical ls_step on {res['step_same_frac']:.4f} of lanes "
-        f"(tolerance >= {STEP_SAME_MIN})")
+        f"(tolerance >= {lim['steps']:.4f}{LIMIT_NOTE[noise_floor]})")
     log(f"  PCG counts within {PCG_SLACK} on {res['pcg_within_frac']:.4f} of "
-        f"lanes (tolerance >= {STEP_SAME_MIN}); largest difference "
+        f"lanes (tolerance >= {lim['counts']:.4f}); largest difference "
         f"{res['pcg_max_diff']}")
     log(f"  {res['lanes_compared']} lanes with identical step and PCG count: X "
         f"normwise rel {res['X_rel']:.3e}, U {res['U_rel']:.3e} (tolerance "
-        f"{TRAJ_RTOL})")
+        f"{lim['X_rel']:.3e} and {lim['U_rel']:.3e})")
     log(f"  lanes with identical step: merit rel p99 {res['merit_rel_p99']:.3e}, "
         f"max {res['merit_rel_max']:.3e} (reported: held against the float64 "
         f"version below); warm-start merit rel max {res['merit0_rel_max']:.3e} "
         f"(tolerance {MERIT0_RTOL})")
-    log(f"  against the float64 plain version (tolerance: the kernel within "
-        f"{F64_FACTOR}x of the float32 plain version, floors {TRAJ_RTOL} and "
-        f"{PCG_SLACK}): X rel kernel {res['kernel_f64_X_rel']:.3e} / plain32 "
-        f"{res['plain32_f64_X_rel']:.3e}; merit rel max kernel "
+    log(f"  against the float64 plain version, lane by lane (the kernel's step "
+        f"equal to float64's, its distances within {F64_FACTOR}x of plain32's "
+        f"largest, floors {TRAJ_RTOL}, {MERIT_RTOL} and {PCG_SLACK}): holds on "
+        f"{res['f64_rule_frac']:.4f} of lanes (tolerance >= {STEP_SAME_MIN}); "
+        f"largest X rel kernel {res['kernel_f64_X_rel']:.3e} / plain32 "
+        f"{res['plain32_f64_X_rel']:.3e}; merit rel kernel "
         f"{res['kernel_f64_merit_rel_max']:.3e} / plain32 "
-        f"{res['plain32_f64_merit_rel_max']:.3e}; PCG max diff kernel "
+        f"{res['plain32_f64_merit_rel_max']:.3e}; PCG count diff kernel "
         f"{res['kernel_f64_pcg_max_diff']} / plain32 {res['plain32_f64_pcg_max_diff']}")
-
-    def within(tag, floor):
-        return res[f"kernel_f64_{tag}"] <= max(floor, F64_FACTOR * res[f"plain32_f64_{tag}"])
-
-    ok = (res["step_same_frac"] >= STEP_SAME_MIN
-          and res["pcg_within_frac"] >= STEP_SAME_MIN
-          and res["X_rel"] <= TRAJ_RTOL and res["U_rel"] <= TRAJ_RTOL
+    ok = (res["step_same_frac"] >= lim["steps"] and res["pcg_within_frac"] >= lim["counts"]
+          and res["X_rel"] <= lim["X_rel"] and res["U_rel"] <= lim["U_rel"]
           and res["merit0_rel_max"] <= MERIT0_RTOL
-          and within("X_rel", TRAJ_RTOL) and within("merit_rel_max", MERIT_RTOL)
-          and within("pcg_max_diff", PCG_SLACK))
+          and res["f64_rule_frac"] >= STEP_SAME_MIN)
     if not ok:
         raise RuntimeError(f"bsqp_iter kernel disagrees with its plain version: {res}")
     return prob, s0, res
@@ -377,10 +528,50 @@ def compare_rk4(f, state):
     return x, u, err
 
 
-def compare_core(f, state, i):
-    """The iter kernel against sqp_iter_core_reference (float32) and both
-    against the plain version in float64, on the identical steady-state
-    input, in compare_iteration's style and limits."""
+def noise_limits(steps, counts, traj):
+    """The limits of compare_iteration and compare_core at the long
+    horizons (CHECK_HORIZONS), where float32 rounding alone moves the plain
+    version further from the float64 one than the fixed limits allow, for
+    the global layout as for the shared one (PERF.md section 6 has
+    the readings). Each is the fixed limit, or what the float32 plain
+    version shows against float64 on the same input where that is looser,
+    bounded:
+      steps   (plain32, float64) per lane, or None: the kernel's steps equal
+              plain32's on STEP_SAME_MIN of the lanes, or on the share of
+              lanes where plain32's equal float64's if that is smaller, and
+              on at least SHARE_FLOOR;
+      counts  (plain32, float64) per lane: the kernel's counts within
+              PCG_SLACK of plain32's on STEP_SAME_MIN of the lanes, or on
+              the share where plain32's are within PCG_SLACK of float64's if
+              smaller, at least SHARE_FLOOR;
+      traj    {name: (plain32, float64) on the compared lanes where
+              plain32's step and count agree with float64's}: normwise
+              TRAJ_RTOL, or twice plain32's distance from float64 there if
+              larger (two float32 results that far from float64 may lie
+              twice as far apart), at most NOISE_CAP."""
+    def share(p32, p64, slack=0):
+        return max(SHARE_FLOOR, min(STEP_SAME_MIN, (
+            (p32.double() - p64.double()).abs() <= slack).double().mean().item()))
+
+    out = dict(counts=share(*counts, PCG_SLACK))
+    if steps is not None:
+        out["steps"] = share(*steps)
+    for name, (p32, p64) in traj.items():
+        noise = normwise(p32, p64) if p32.numel() else 0.0
+        out[name] = min(NOISE_CAP, max(TRAJ_RTOL, 2 * noise))
+    return out
+
+
+def compare_core(f, state, i, noise_floor=False):
+    """The iter kernel (the variant that f.N takes) against
+    sqp_iter_core_reference (float32) and both against the plain version in
+    float64, on the identical steady-state input, in compare_iteration's
+    style and limits (the float64 rule lane by lane: dZX and the PCG
+    count). With noise_floor (the long horizons) a lane may be non-finite
+    in the kernel where a float32 PCG, the kernel's or the plain
+    version's, ran to max_pcg_iters without converging (the PCG count rule
+    bounds how many lanes' counts differ): the core does not scrub (its
+    caller does), and float32 PCG diverges on some lanes there."""
     X, U, lam, x_s = state
     skip = torch.zeros(f.B, dtype=torch.bool, device=f.dev)
     args = (X, U, x_s, f.ref(i), f.f_ext, lam, f.hp.rho, f.hp.pcg_tol)
@@ -391,40 +582,77 @@ def compare_core(f, state, i):
     o64 = sqp_iter_core_reference(m64, f.cp, *(t.double() for t in args), skip,
                                   DT, mpcg)
     torch.cuda.synchronize()
-    if not all(torch.isfinite(t).all() for t in ko[:3]):
-        raise RuntimeError("iter kernel output is not finite")
+
+    def diverged(o):
+        return ~(torch.isfinite(o[0]).all((1, 2)) & torch.isfinite(o[1]).all((1, 2))
+                 & torch.isfinite(o[2]).all((1, 2)))
+
+    kd, pd, d64 = diverged(ko), diverged(ro), diverged(o64)
+    stalled = pd | d64 | (ro[3] >= mpcg) | (ko[3] >= mpcg)
+    if (kd & ~stalled if noise_floor else kd | pd | d64).any():
+        raise RuntimeError(f"iter kernel output is not finite on lanes "
+                           f"{torch.nonzero(kd).flatten().tolist()} (plain32 "
+                           f"{torch.nonzero(pd).flatten().tolist()}, stalled "
+                           f"{torch.nonzero(stalled).flatten().tolist()})")
+    fin = ~(kd | pd | d64)
     diff = (ko[3] - ro[3]).abs()
-    same = diff == 0
-    res = dict(pcg_within_frac=(diff <= PCG_SLACK).double().mean().item(),
+    same = (diff == 0) & fin
+    if noise_floor and iteration_variant(f.N) != ("global", 1):
+        # the same input through the global layout: the shared layout's
+        # non-finite lanes against the global one's (reported)
+        kg = sqp_iter_core_cuda(f.model, f.cp, *args, skip, DT, mpcg, variant=("global", 1))
+        torch.cuda.synchronize()
+        same_as_global = bool(torch.equal(diverged(kg), kd))
+    else:
+        same_as_global = None
+    res = dict(diverged_lanes=[int(kd.sum()), int(pd.sum()), int(d64.sum())],
+               stalled_lanes=int(stalled.sum()), diverged_as_global=same_as_global,
+               pcg_within_frac=(diff <= PCG_SLACK).double().mean().item(),
                pcg_max_diff=int(diff.max()), lanes_compared=int(same.sum()),
                dZX_rel=normwise(ko[0][same], ro[0][same]),
                dZU_rel=normwise(ko[1][same], ro[1][same]),
                lam_rel=normwise(ko[2][same], ro[2][same]),
                dZX_max_abs_err=(ko[0][same] - ro[0][same]).abs().max().item(),
                kernel_pcg_sum=int(ko[3].sum()))
+    lanes = {}
     for tag, o in (("kernel", ko), ("plain32", ro)):
-        res[f"{tag}_f64_dZX_rel"] = normwise(o[0], o64[0])
-        res[f"{tag}_f64_pcg_max_diff"] = int((o[3] - o64[3]).abs().max())
-    log("[compare] iter kernel vs sqp_iter_core_reference (float32, identical "
-        "steady-state input):")
+        lanes[tag] = (lane_rel(o[0], o64[0]), (o[3] - o64[3]).abs())
+        res[f"{tag}_f64_dZX_rel"] = lanes[tag][0][fin].max().item()
+        res[f"{tag}_f64_pcg_max_diff"] = int(lanes[tag][1].max())
+    kx, kc = lanes["kernel"]
+    f64_ok = (~fin | ((kx <= max(TRAJ_RTOL, F64_FACTOR * res["plain32_f64_dZX_rel"]))
+                      & (kc <= max(PCG_SLACK, F64_FACTOR * res["plain32_f64_pcg_max_diff"]))))
+    res["f64_rule_frac"] = f64_ok.double().mean().item()
+    names = ("dZX_rel", "dZU_rel", "lam_rel")
+    lim = dict(counts=STEP_SAME_MIN, **{n: TRAJ_RTOL for n in names})
+    if noise_floor:
+        quiet = same & ((ro[3] - o64[3]).abs() <= PCG_SLACK)
+        lim = noise_limits(None, (ro[3], o64[3]),
+                           {n: (ro[j][quiet], o64[j][quiet]) for j, n in enumerate(names)})
+    res["limits"] = lim
+    log(f"[compare] iter kernel ({variant_name(f.N)}) vs sqp_iter_core_reference "
+        f"(float32, N={f.N} B={f.B}, identical steady-state input):")
     log(f"  PCG counts within {PCG_SLACK} on {res['pcg_within_frac']:.4f} of "
-        f"lanes (tolerance >= {STEP_SAME_MIN}); largest difference "
-        f"{res['pcg_max_diff']}")
+        f"lanes (tolerance >= {lim['counts']:.4f}{LIMIT_NOTE[noise_floor]}); "
+        f"largest difference {res['pcg_max_diff']}")
+    log(f"  lanes whose output is not finite (kernel / plain32 / float64, not "
+        f"compared): {res['diverged_lanes']}; a float32 PCG not finite or at the "
+        f"cap of {mpcg} on {res['stalled_lanes']}; the kernel's are the global "
+        f"layout's on this input: {res['diverged_as_global']} (reported)")
     log(f"  {res['lanes_compared']} lanes with identical PCG count: dZX "
         f"normwise rel {res['dZX_rel']:.3e}, dZU {res['dZU_rel']:.3e}, lam "
-        f"{res['lam_rel']:.3e} (tolerance {TRAJ_RTOL})")
-    log(f"  against the float64 plain version (the kernel within {F64_FACTOR}x "
-        f"of the float32 plain version, floors {TRAJ_RTOL} and {PCG_SLACK}): "
-        f"dZX rel kernel {res['kernel_f64_dZX_rel']:.3e} / plain32 "
-        f"{res['plain32_f64_dZX_rel']:.3e}; PCG max diff kernel "
-        f"{res['kernel_f64_pcg_max_diff']} / plain32 "
+        f"{res['lam_rel']:.3e} (tolerance {lim['dZX_rel']:.3e}, "
+        f"{lim['dZU_rel']:.3e}, {lim['lam_rel']:.3e})")
+    log(f"  against the float64 plain version, lane by lane (the kernel within "
+        f"{F64_FACTOR}x of plain32's largest distance, floors {TRAJ_RTOL} and "
+        f"{PCG_SLACK}): holds on {res['f64_rule_frac']:.4f} of lanes (tolerance "
+        f">= {STEP_SAME_MIN}); largest dZX rel kernel "
+        f"{res['kernel_f64_dZX_rel']:.3e} / plain32 {res['plain32_f64_dZX_rel']:.3e}; "
+        f"PCG count diff kernel {res['kernel_f64_pcg_max_diff']} / plain32 "
         f"{res['plain32_f64_pcg_max_diff']}")
-    ok = (res["pcg_within_frac"] >= STEP_SAME_MIN
-          and max(res["dZX_rel"], res["dZU_rel"], res["lam_rel"]) <= TRAJ_RTOL
-          and res["kernel_f64_dZX_rel"] <= max(
-              TRAJ_RTOL, F64_FACTOR * res["plain32_f64_dZX_rel"])
-          and res["kernel_f64_pcg_max_diff"] <= max(
-              PCG_SLACK, F64_FACTOR * res["plain32_f64_pcg_max_diff"]))
+    ok = (res["pcg_within_frac"] >= lim["counts"]
+          and all(res[n] <= lim[n] for n in names)
+          and res["f64_rule_frac"] >= STEP_SAME_MIN)
     if not ok:
         raise RuntimeError(f"iter kernel disagrees with its plain version: {res}")
     return args, skip, ro, res
@@ -591,6 +819,7 @@ def main():
         log(f"[build] ptxas {name}:\n{_build.ptxas_report(name).rstrip()}")
     ops = generated_op_counts()
     log(f"[bound] operations per call of the generated functions: {ops}")
+    report_variants()
 
     f = Fig8(dev)
     state, i0 = f.steady_state()
@@ -639,6 +868,19 @@ def main():
         + ", ".join(f"{n} {k:.4f} / {p:.3f}" for n, (k, p) in times.items())
         + f"; pcg library yardstick torch.linalg.solve on the dense "
         f"({N * 12})^2 Schur matrix {pcg_library_ms:.3f} ms")
+
+    # ---- the iteration kernels' layouts side by side, N=32 and N_WIDE ----
+    same_bits_as_global(f, state, i0 - 1)
+    lay = time_variants(f, state, i0 - 1, card)
+    taken = lay[iteration_variant(N)]
+    log(f"[layout] N={N} B={B}: in the variant N takes ({variant_name(N)}) bsqp_iter "
+        f"{taken['bsqp_iter']:.4f} ms against the global layout "
+        f"{lay[('global', 1)]['bsqp_iter']:.4f} ms in this run; iter "
+        f"{taken['iter']:.4f} against {lay[('global', 1)]['iter']:.4f} ms")
+    fw = Fig8(dev, N_WIDE, B)
+    state_w, i0_w = fw.steady_state()
+    time_variants(fw, state_w, i0_w - 1, card)
+    del fw, state_w
 
     # ---- the main path: K cycles on the default route, launches counted ----
     reset_launches()
@@ -718,6 +960,14 @@ def main():
         f"{float((step_l > 0).mean()):.3f} of (lane, cycle); PCG iterations mean "
         f"{float(pcg_l.mean()):.2f}, max {int(pcg_l.max())}, at the cap of {mpcg} on "
         f"{float((pcg_l == mpcg).mean()):.4f} of (lane, cycle) (reported, not checked)")
+
+    # ---- bsqp_iter and iter at the long horizons, B=512 ----
+    for n in CHECK_HORIZONS:
+        fc = Fig8(dev, n, B)
+        state_c, i0_c = fc.steady_state()
+        compare_iteration(fc, state_c, i0_c - 1, noise_floor=True)
+        compare_core(fc, state_c, i0_c - 1, noise_floor=True)
+        del fc, state_c
 
     # ---- bounds from this run's inputs ----
     kkt_ops, merit_ops = ops["knot_kkt"], ops["knot_merit"]

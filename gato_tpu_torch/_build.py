@@ -5,7 +5,10 @@ nvcc into its own shared library (no PyTorch headers, so a build takes
 seconds to minutes, not the many minutes of a torch extension):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0
+
+(--split-compile=0 optimizes the kernels of one file in parallel on every
+CPU: the iteration kernels' files hold four variants each.)
 
 The libraries go to `build/gato_tpu_torch/` beside the package, named by a
 hash of every file under csrc/ and of the flags, so an edit rebuilds and an
@@ -30,7 +33,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "gato_tpu_torch")
 KERNELS = ("rk4", "bsqp_iter", "iter", "pcg", "merit", "kkt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 def _nvcc() -> str:

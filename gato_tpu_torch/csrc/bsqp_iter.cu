@@ -1,6 +1,6 @@
-// One SQP iteration of the batched solve: one thread block per problem, one
-// thread per knot. The body is sqp_iter.cuh's sqp_iteration<true>; its
-// phases A-E are shared with csrc/iter.cu.
+// One SQP iteration of the batched solve: one thread block per problem. The
+// body is sqp_iter.cuh's sqp_iteration<true, layout, G>; its phases A-E are
+// shared with csrc/iter.cu.
 //
 // Replaces gato_tpu/ops/pallas_solve.py::_solve_kernel as launched by
 // sqp_solve_pallas_chained (one launch per SQP iteration, the whole-batch
@@ -11,15 +11,19 @@
 // disabled (chained mode), and the plain PyTorch version
 // ops/cuda_solve.py::sqp_iter_reference.
 //
-// Bound: on this card the per-knot straight-line code (knot_kkt is ~13k SSA
-// values, knot_merit ~3k, run 9 times) is bound by registers: it spills to
-// local memory. The PCG loop is bound by reading the four 12x12 blocks per
-// knot (S and P, main and lower: ~2.3 KB per knot per iteration) from the
-// global scratch: at N = 128 they would not fit a block's shared memory, so
-// they live in global memory in an element-major layout (consecutive knots,
-// i.e. consecutive threads, read consecutive addresses), and only the PCG
-// vectors live in shared memory. Occupancy, spills and tensor cores are
-// left for later work.
+// Bound: the PCG loop (phase D) was bound by re-reading each knot's four
+// 12x12 blocks (~2.3 KB per knot per iteration) from a global scratch that
+// the L2 cache does not hold, with one warp per problem at N = 32. Up to
+// N = 64 (they would fit up to 86), phases A-C now write the blocks into shared memory
+// and the Krylov loop reads them there, as the TPU kernel keeps them in
+// VMEM; G groups of threads share each knot's rows
+// (ops/cuda_iter.py::iteration_variant picks the variant by N), so the
+// loop's traffic (432 floats a knot per matvec) stays on the SM. What
+// bounds the kernel then is phases A-C + E, the registers of the generated
+// knot_kkt (it spills), run by group 0 alone; the shared memory costs
+// residency (87 KB a block at N = 32: 2 problems per SM, two waves for a
+// batch of 512), which they did not feel in PERF.md's measurement. Past
+// N = 64 the blocks stay in the global scratch (the kGlobal layout).
 //
 // NaN containment is per block: a diverged problem cannot reach another
 // one. Two behaviours still follow the TPU kernel: a problem whose
@@ -30,17 +34,17 @@
 // problem's merit stays finite.
 #include "sqp_iter.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(128)
-bsqp_iter_kernel(const gato::IterArgs a) {
-  gato::sqp_iteration<true>(a);
-}
-
-}  // namespace
-
 extern "C" int gato_bsqp_iter_knot_floats() { return gato::iter_detail::KNOT_FLOATS; }
 
-extern "C" int gato_bsqp_iter_indy7(const gato::IterArgs* args, void* stream) {
-  return gato::launch_iteration(bsqp_iter_kernel, args, stream);
+extern "C" long long gato_bsqp_iter_smem_bytes(int N, int layout, int G) {
+  return (long long)gato::iter_detail::smem_bytes(N, static_cast<gato::Blocks>(layout), G);
+}
+
+extern "C" int gato_bsqp_iter_blocks_per_sm(int N, int layout, int G) {
+  return gato::blocks_per_sm<true>(N, layout, G);
+}
+
+extern "C" int gato_bsqp_iter_indy7(const gato::IterArgs* args, int layout, int G,
+                                    void* stream) {
+  return gato::launch_iteration<true>(args, layout, G, stream);
 }

@@ -1,7 +1,7 @@
-// One SQP iteration of the batched solve, one thread block per problem and
-// one thread per knot: the body shared by csrc/bsqp_iter.cu (the whole
-// iteration, kLineSearch = true) and csrc/iter.cu (phases A-E only,
-// kLineSearch = false). Phases, separated by __syncthreads():
+// One SQP iteration of the batched solve, one thread block per problem: the
+// body shared by csrc/bsqp_iter.cu (the whole iteration, kLineSearch = true)
+// and csrc/iter.cu (phases A-E only, kLineSearch = false). Phases, separated
+// by barriers:
 //   A  KKT: thread k calls the generated knot_kkt (dynamics linearization by
 //      sparse duals, defect, cost gradient/Hessian; the tracking weight is
 //      N_cost on the last knot) and inverts its Q~ blocks (Cholesky of the
@@ -9,9 +9,7 @@
 //   B  Schur: theta_k, gamma_{k+1}, S_main_{k+1} = -theta_k and the SS
 //      preconditioner block -(theta_k + rho I~)^-1 (12x12 Cholesky);
 //   C  P_lower_k = -(P_main_{k+1} phi_k P_main_k);
-//   D  block PCG on the block-tridiagonal Schur system: each thread does its
-//      knot's rows of the matvec; dot products are warp shuffles plus one
-//      shared-memory pass across warps;
+//   D  block PCG on the block-tridiagonal Schur system (below);
 //   E  dz recovery; with kLineSearch the per-problem step_ok scrub of
 //      non-finite steps, without it dz, lam and the PCG count are written
 //      out as they are (the caller scrubs, as the JAX package's after_solve
@@ -21,6 +19,38 @@
 //   G  thread 0 runs the line search and the rho schedule; every thread
 //      writes its knot back.
 // F and G run only with kLineSearch.
+//
+// The block is G groups of W = 32 ceil(N / 32) threads: thread t handles
+// knot k = t mod W in group g = t / W. Phases A-C and E-G run on group 0
+// alone (its first ceil(N / 32) warps), one thread per knot; the other
+// groups join only phase D and the barriers.
+//
+// Phase D comes in two layouts (the template parameter kBlocks):
+//   kShared  phases A-C write the problem's four 12x12 blocks per knot
+//            (S_main, phi = S_lower, P_main, P_lower: 2,304 bytes a knot)
+//            into dynamic shared memory, element-major (element e of knot k
+//            at e N + k, so a warp's consecutive knots hit consecutive
+//            banks), and the Krylov loop reads them from there. Group g
+//            computes rows [12g/G, 12(g+1)/G) of its knot in each matvec and
+//            vector update, keeping lam, r, p, z and Ap of those rows in
+//            registers; r and p go to shared memory (element-major) for the
+//            neighbours' matvecs. A row sums main, then lower, then upper
+//            (as kGlobal does), so its value is kGlobal's bit for bit; a dot
+//            product sums each group's rows, then the G partials in order,
+//            clamps the knot's term and sums the knots, so its order differs
+//            from kGlobal's when G > 1 or N > 32. Four barriers an iteration,
+//            the ones the data needs (r and p complete before a matvec reads
+//            a neighbour's rows, the partials complete before a dot's sum);
+//            a block of one warp syncs with __syncwarp and sums with
+//            shuffles. It fits 232,448 bytes up to N = 86;
+//            ops/cuda_iter.py takes it up to N = 64.
+//   kGlobal  one thread per knot (G = 1); the blocks stay in the
+//            element-major global scratch and the loop re-reads them every
+//            iteration (the layout for 64 < N <= 128).
+// Both keep the semantics of pallas_pcg: the counter increments before the
+// convergence test, a non-finite warm start reports max_pcg_iters without
+// iterating, |rho| < PCG_ABS_TOL skips the loop, per-knot terms are clamped
+// to 1e30.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -73,12 +103,17 @@ struct IterArgs {
   float w[7];          // CostParams order
 };
 
+// Where phase D reads the Schur and preconditioner blocks (the layout
+// argument of the entry points: 0 global, 1 shared).
+enum class Blocks { kGlobal = 0, kShared = 1 };
+
 namespace iter_detail {
 
 namespace robot = gato::indy7;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
 constexpr int NU = NQ;
+constexpr int BLK = NX * NX;
 constexpr int MAX_ALPHAS = 16;
 constexpr float RHO_INIT = 1e-3f;
 constexpr float RHO_FACTOR = 1.2f;
@@ -103,9 +138,23 @@ constexpr int E_PL = E_PM + NX * NX;   // P_lower_k (block (k+1, k))
 constexpr int E_G = E_PL + NX * NX;    // gamma_k
 constexpr int KNOT_FLOATS = E_G + NX;
 
-// shared memory of one block at horizon N, in bytes
-inline size_t smem_bytes(int N) {
-  return sizeof(float) * ((size_t)N * (7 * NX + 2 * NU) + 32 + MAX_ALPHAS + 2);
+// the four blocks of phase D, contiguous in the scratch from E_PHI on, and
+// in that order in shared memory in the kShared layout: offsets from E_PHI
+constexpr int SB_PHI = 0, SB_SM = BLK, SB_PM = 2 * BLK, SB_PL = 3 * BLK;
+constexpr int SB_FLOATS = 4 * BLK;
+
+constexpr int MAX_THREADS = 256;  // G W, so that 255 registers a thread fit an SM
+
+__host__ __device__ inline int warp_threads(int N) { return 32 * ((N + 31) / 32); }
+
+// dynamic shared memory of one block at horizon N, in bytes: X, U, lam, the
+// PCG vectors r, p, z, Ap, dz, 32 warp partials, the merits and the line
+// search's two words; kShared adds the four blocks of every knot and two
+// buffers of one partial per thread (ops/cuda_iter.py::smem_bytes mirrors it)
+inline size_t smem_bytes(int N, Blocks layout, int G) {
+  size_t f = (size_t)N * (7 * NX + 2 * NU) + 32 + MAX_ALPHAS + 2;
+  if (layout == Blocks::kShared) f += (size_t)SB_FLOATS * N + 2 * (size_t)G * warp_threads(N);
+  return sizeof(float) * f;
 }
 
 // One knot's scratch slots: element e of knot k of problem b lives at
@@ -183,17 +232,94 @@ __device__ inline float knot_dot(const float* a, const float* b, int k) {
   return clamp_term(s);
 }
 
+// Rows [r0, r0 + R) of btd_matvec at knot k, the blocks in shared memory
+// (element-major, stride N: blk[e * N + k]) and x read through x(knot, c);
+// each row in btd_matvec's order of summation (main, lower, upper, each
+// over c ascending; a missing neighbour adds 0 x 0, btd_matvec's +0). The
+// loop over c is unrolled NX / R times only, so the loop body stays about
+// 36 loads long whatever R is (a fully unrolled 12-row body is some 48 KB
+// of code, which the instruction cache does not hold).
+template <int R, typename X>
+__device__ __forceinline__ void btd_rows(const float* blk, int N, int k, int r0,
+                                         int em, int el, X x, float (&y)[R]) {
+  constexpr int CU = NX / R;
+  const bool prev = k > 0, next = k < N - 1;
+  const float* M = blk + (size_t)(em + r0 * NX) * N + k;       // (r0 + i, c)
+  const float* Lp = blk + (size_t)(el + r0 * NX) * N + k - 1;  // knot k-1's
+  const float* Lt = blk + (size_t)(el + r0) * N + k;           // (c, r0 + i)
+  float acc[R], t1[R], t2[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = t1[i] = t2[i] = 0.0f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < NX; c0 += CU) {
+#pragma unroll
+    for (int cc = 0; cc < CU; ++cc) {
+      const int c = c0 + cc;
+      const float xk = x(k, c);
+      const float xp = prev ? x(k - 1, c) : 0.0f;
+      const float xn = next ? x(k + 1, c) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        acc[i] += M[(i * NX + c) * N] * xk;
+        t1[i] += (prev ? Lp[(i * NX + c) * N] : 0.0f) * xp;
+        t2[i] += (next ? Lt[(c * NX + i) * N] : 0.0f) * xn;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) y[i] = acc[i] + t1[i] + t2[i];
+}
+
+template <int R>
+__device__ __forceinline__ float rows_dot(const float (&a)[R], const float (&b)[R]) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) s += a[i] * b[i];
+  return s;
+}
+
+// The sum over knots of clamp(sum over the G groups of each knot's partial),
+// the same value in every thread. One warp (G = 1, N <= 32): shuffles only.
+// Otherwise each group writes its partials to part (G W floats), one
+// barrier, and every warp sums all knots in the same order.
+template <int G>
+__device__ __forceinline__ float knot_total(float partial, float* part, int W,
+                                            int N, int k, int g, bool one_warp) {
+  float v;
+  if (G == 1 && one_warp) {
+    v = clamp_term(partial);
+  } else {
+    part[g * W + k] = partial;
+    __syncthreads();
+    v = 0.0f;
+    for (int kk = threadIdx.x & 31; kk < N; kk += 32) {
+      float s = part[kk];
+#pragma unroll
+      for (int h = 1; h < G; ++h) s += part[h * W + kk];
+      v += clamp_term(s);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
 }  // namespace iter_detail
 
-template <bool kLineSearch>
+template <bool kLineSearch, Blocks kBlocks, int G>
 __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   using namespace iter_detail;
+  static_assert(kBlocks == Blocks::kShared || G == 1,
+                "the global layout runs one thread per knot");
+  static_assert(NX % G == 0, "a group takes NX / G rows");
   extern __shared__ float smem[];
   const int N = a.N;
+  const int W = warp_threads(N);
   const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  const bool on = k < N;
-  const bool notlast = k < N - 1;
+  const int g = G == 1 ? 0 : (int)threadIdx.x / W;
+  const int k = (int)threadIdx.x - g * W;
+  const bool lead = threadIdx.x == 0;
+  const bool on = g == 0 && k < N;  // one thread per knot: phases A-C, E-G
+  const bool notlast = on && k < N - 1;
 
   float* sX = smem;               // (N, NX) trajectory
   float* sU = sX + N * NX;        // (N, NU) controls (row N-1 unused)
@@ -207,11 +333,18 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   float* red = sDU + N * NU;      // 32 warp partials
   float* sMerit = red + 32;       // merit per alpha
   float* sLS = sMerit + MAX_ALPHAS;  // [success, alpha]
+  float* sBlk = sLS + 2;          // kShared: (SB_FLOATS, N) blocks
+  float* part = sBlk + SB_FLOATS * N;  // kShared: 2 x (G, W) dot partials
 
   const size_t stride = (size_t)a.B * N;
   const Knot K{a.scratch + (size_t)b * N + k, (int)stride};
   const Knot Kp{a.scratch + (size_t)b * N + k - 1, (int)stride};  // knot k-1
   const Knot Kn{a.scratch + (size_t)b * N + k + 1, (int)stride};  // knot k+1
+  // the four blocks of knot k (Kb) and k+1 (Kbn), offsets SB_*: in shared
+  // memory (kShared), so that phases A-C write them where phase D reads
+  // them, or in the scratch slots from E_PHI on (kGlobal)
+  const Knot Kb = kBlocks == Blocks::kShared ? Knot{sBlk + k, N} : K.at(E_PHI);
+  const Knot Kbn = kBlocks == Blocks::kShared ? Knot{sBlk + k + 1, N} : Kn.at(E_PHI);
 
   const float rho = a.rho[b];
   const float* fe = a.fe + b * 6;
@@ -247,10 +380,10 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       for (int c = 0; c < NQ; ++c) {
         float s = 0.0f;
         for (int j = 0; j < NQ; ++j) s += K[E_A + r * NX + j] * K[E_IQQ + j * NQ + c];
-        K[E_PHI + r * NX + c] = s;
+        Kb[SB_PHI + r * NX + c] = s;
       }
       for (int c = NQ; c < NX; ++c)
-        K[E_PHI + r * NX + c] = K[E_A + r * NX + c] * K[E_IDQ + c - NQ];
+        Kb[SB_PHI + r * NX + c] = K[E_A + r * NX + c] * K[E_IDQ + c - NQ];
     }
     if (k == 0) {
       // S_main_0 = -Q~_0^-1; P_main_0 = -Q~_0 (not its inverse: reference
@@ -258,8 +391,8 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       for (int r = 0; r < NX; ++r) {
         float qq = 0.0f;
         for (int c = 0; c < NX; ++c) {
-          K[E_SM + r * NX + c] = -qinv(K, r, c);
-          K[E_PM + r * NX + c] =
+          Kb[SB_SM + r * NX + c] = -qinv(K, r, c);
+          Kb[SB_PM + r * NX + c] =
               -(K[E_Q + r * NX + c] + ((r == c && r < NQ) ? rho : 0.0f));
           if (r < NQ ? c < NQ : c == r) qq += qinv(K, r, c) * K[E_QV + c];
         }
@@ -275,7 +408,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
     for (int r = 0; r < NX; ++r) {
       for (int s = r; s < NX; ++s) {
         float t = 0.0f;
-        for (int c = 0; c < NX; ++c) t += K[E_PHI + r * NX + c] * K[E_A + s * NX + c];
+        for (int c = 0; c < NX; ++c) t += Kb[SB_PHI + r * NX + c] * K[E_A + s * NX + c];
         float u = 0.0f;
         for (int c = 0; c < NU; ++c)
           u += K[E_B + r * NU + c] * K[E_RI + c] * K[E_B + s * NU + c];
@@ -285,20 +418,20 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       }
     }
     for (int r = 0; r < NX; ++r) {
-      for (int s = 0; s < NX; ++s) Kn[E_SM + r * NX + s] = -theta[r][s];
+      for (int s = 0; s < NX; ++s) Kbn[SB_SM + r * NX + s] = -theta[r][s];
       // gamma_{k+1} = c_k - Q~_{k+1}^-1 q_{k+1} + phi_k q_k + B R^-1 r_k
       float qq = 0.0f;
       for (int c = 0; c < NX; ++c)
         if (r < NQ ? c < NQ : c == r) qq += qinv(Kn, r, c) * Kn[E_QV + c];
       float t1 = 0.0f;
-      for (int c = 0; c < NX; ++c) t1 += K[E_PHI + r * NX + c] * K[E_QV + c];
+      for (int c = 0; c < NX; ++c) t1 += Kb[SB_PHI + r * NX + c] * K[E_QV + c];
       float t2 = 0.0f;
       for (int c = 0; c < NU; ++c) t2 += K[E_B + r * NU + c] * K[E_RI + c] * K[E_RV + c];
       Kn[E_G + r] = (K[E_C + r] - qq) + (t1 + t2);
     }
     chol_inv<NX>(
         [&](int r, int c) { return theta[r][c] + ((r == c && r < NQ) ? rho : 0.0f); },
-        [&](int r, int c, float v) { Kn[E_PM + r * NX + c] = -v; });
+        [&](int r, int c, float v) { Kbn[SB_PM + r * NX + c] = -v; });
   }
   __syncthreads();
 
@@ -308,63 +441,146 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       float T[NX];
       for (int c = 0; c < NX; ++c) {
         float s = 0.0f;
-        for (int j = 0; j < NX; ++j) s += Kn[E_PM + r * NX + j] * K[E_PHI + j * NX + c];
+        for (int j = 0; j < NX; ++j) s += Kbn[SB_PM + r * NX + j] * Kb[SB_PHI + j * NX + c];
         T[c] = s;
       }
       for (int c = 0; c < NX; ++c) {
         float s = 0.0f;
-        for (int j = 0; j < NX; ++j) s += T[j] * K[E_PM + j * NX + c];
-        K[E_PL + r * NX + c] = -s;
+        for (int j = 0; j < NX; ++j) s += T[j] * Kb[SB_PM + j * NX + c];
+        Kb[SB_PL + r * NX + c] = -s;
       }
     }
   }
   __syncthreads();
 
   // ---- D: PCG on S lam = gamma, preconditioner P (pcg_channels) ----
-  if (on) {
-    btd_matvec(K, Kp, k, N, E_SM, E_PHI, sLam, sAp);
-    for (int i = 0; i < NX; ++i) sR[k * NX + i] = K[E_G + i] - sAp[k * NX + i];
-  }
-  __syncthreads();
-  if (on) btd_matvec(K, Kp, k, N, E_PM, E_PL, sR, sZ);
-  __syncthreads();
-  bool bad_local = false;
-  if (on) {
-    for (int i = 0; i < NX; ++i) sP[k * NX + i] = sZ[k * NX + i];
-    bad_local = !(finite_vec(sR + k * NX, NX) && finite_vec(sZ + k * NX, NX));
-  }
-  float rho_c = block_sum(on ? knot_dot(sR, sZ, k) : 0.0f, red);
-  const bool bad = __syncthreads_or(bad_local);
   const bool skip = a.conv[b] > 0.5f;
-  const bool dead0 = !skip && bad;
-  const float rho_init = fabsf(rho_c);
   const float eps = a.eps[b];
-  bool active = !skip && !dead0 && fabsf(rho_c) >= PCG_ABS_TOL;
+  bool dead0;
   int iters = 0;
-  for (int it = 0; it < a.max_pcg_iters && active; ++it) {
-    ++iters;
-    if (on) btd_matvec(K, Kp, k, N, E_SM, E_PHI, sP, sAp);
-    __syncthreads();
-    const float pAp = block_sum(on ? knot_dot(sP, sAp, k) : 0.0f, red);
-    const float alpha = rho_c / (pAp == 0.0f ? 1.0f : pAp);
-    if (on)
-      for (int i = 0; i < NX; ++i) {
-        sLam[k * NX + i] += alpha * sP[k * NX + i];
-        sR[k * NX + i] -= alpha * sAp[k * NX + i];
-      }
+  if constexpr (kBlocks == Blocks::kGlobal) {
+    if (on) {
+      btd_matvec(K, Kp, k, N, E_SM, E_PHI, sLam, sAp);
+      for (int i = 0; i < NX; ++i) sR[k * NX + i] = K[E_G + i] - sAp[k * NX + i];
+    }
     __syncthreads();
     if (on) btd_matvec(K, Kp, k, N, E_PM, E_PL, sR, sZ);
     __syncthreads();
-    const float rho_new = block_sum(on ? knot_dot(sR, sZ, k) : 0.0f, red);
-    const bool converged = fabsf(rho_new) < PCG_ABS_TOL + eps * rho_init;
-    const float beta = rho_new / (rho_c == 0.0f ? 1.0f : rho_c);
-    if (converged) {
-      active = false;
-    } else {
-      if (on)
-        for (int i = 0; i < NX; ++i) sP[k * NX + i] = sZ[k * NX + i] + beta * sP[k * NX + i];
-      rho_c = rho_new;
+    bool bad_local = false;
+    if (on) {
+      for (int i = 0; i < NX; ++i) sP[k * NX + i] = sZ[k * NX + i];
+      bad_local = !(finite_vec(sR + k * NX, NX) && finite_vec(sZ + k * NX, NX));
     }
+    float rho_c = block_sum(on ? knot_dot(sR, sZ, k) : 0.0f, red);
+    const bool bad = __syncthreads_or(bad_local);
+    dead0 = !skip && bad;
+    const float rho_init = fabsf(rho_c);
+    bool active = !skip && !dead0 && fabsf(rho_c) >= PCG_ABS_TOL;
+    for (int it = 0; it < a.max_pcg_iters && active; ++it) {
+      ++iters;
+      if (on) btd_matvec(K, Kp, k, N, E_SM, E_PHI, sP, sAp);
+      __syncthreads();
+      const float pAp = block_sum(on ? knot_dot(sP, sAp, k) : 0.0f, red);
+      const float alpha = rho_c / (pAp == 0.0f ? 1.0f : pAp);
+      if (on)
+        for (int i = 0; i < NX; ++i) {
+          sLam[k * NX + i] += alpha * sP[k * NX + i];
+          sR[k * NX + i] -= alpha * sAp[k * NX + i];
+        }
+      __syncthreads();
+      if (on) btd_matvec(K, Kp, k, N, E_PM, E_PL, sR, sZ);
+      __syncthreads();
+      const float rho_new = block_sum(on ? knot_dot(sR, sZ, k) : 0.0f, red);
+      const bool converged = fabsf(rho_new) < PCG_ABS_TOL + eps * rho_init;
+      const float beta = rho_new / (rho_c == 0.0f ? 1.0f : rho_c);
+      if (converged) {
+        active = false;
+      } else {
+        if (on)
+          for (int i = 0; i < NX; ++i) sP[k * NX + i] = sZ[k * NX + i] + beta * sP[k * NX + i];
+        rho_c = rho_new;
+      }
+      __syncthreads();
+    }
+  } else {
+    // phases A-C left the four blocks in sBlk
+    constexpr int R = NX / G;
+    const int r0 = g * R;
+    const bool in = k < N;  // every group's thread of a knot
+    const bool one_warp = G == 1 && W == 32;
+    float* partA = part;
+    float* partB = part + G * W;
+    // r and p element-major: a warp's neighbours on consecutive banks
+    auto rvec = [&](int kk, int c) { return sR[c * N + kk]; };
+    auto pvec = [&](int kk, int c) { return sP[c * N + kk]; };
+    auto sync = [&]() {
+      if (one_warp)
+        __syncwarp();
+      else
+        __syncthreads();
+    };
+    float lam_r[R], r_r[R], p_r[R], z_r[R], ap_r[R];
+    if (in) {
+      btd_rows<R>(sBlk, N, k, r0, SB_SM, SB_PHI,
+                  [&](int kk, int c) { return sLam[kk * NX + c]; }, ap_r);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        lam_r[i] = sLam[k * NX + r0 + i];
+        r_r[i] = K[E_G + r0 + i] - ap_r[i];
+        sR[(r0 + i) * N + k] = r_r[i];
+      }
+    }
+    sync();
+    bool bad_local = false;
+    if (in) {
+      btd_rows<R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        p_r[i] = z_r[i];
+        sP[(r0 + i) * N + k] = p_r[i];
+        bad_local = bad_local || !(isfinite(r_r[i]) && isfinite(z_r[i]));
+      }
+    }
+    float rho_c = knot_total<G>(in ? rows_dot(r_r, z_r) : 0.0f, partB, W, N, k, g, one_warp);
+    const bool bad = __syncthreads_or(bad_local);
+    dead0 = !skip && bad;
+    const float rho_init = fabsf(rho_c);
+    bool active = !skip && !dead0 && fabsf(rho_c) >= PCG_ABS_TOL;
+    for (int it = 0; it < a.max_pcg_iters && active; ++it) {
+      ++iters;
+      if (in) btd_rows<R>(sBlk, N, k, r0, SB_SM, SB_PHI, pvec, ap_r);
+      const float pAp = knot_total<G>(in ? rows_dot(p_r, ap_r) : 0.0f, partA, W, N, k, g,
+                                      one_warp);
+      const float alpha = rho_c / (pAp == 0.0f ? 1.0f : pAp);
+      if (in)
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          lam_r[i] += alpha * p_r[i];
+          r_r[i] -= alpha * ap_r[i];
+          sR[(r0 + i) * N + k] = r_r[i];
+        }
+      sync();
+      if (in) btd_rows<R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
+      const float rho_new = knot_total<G>(in ? rows_dot(r_r, z_r) : 0.0f, partB, W, N, k, g,
+                                          one_warp);
+      const bool converged = fabsf(rho_new) < PCG_ABS_TOL + eps * rho_init;
+      const float beta = rho_new / (rho_c == 0.0f ? 1.0f : rho_c);
+      if (converged) {
+        active = false;
+      } else {
+        if (in)
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            p_r[i] = z_r[i] + beta * p_r[i];
+            sP[(r0 + i) * N + k] = p_r[i];
+          }
+        rho_c = rho_new;
+      }
+      sync();
+    }
+    if (in)
+#pragma unroll
+      for (int i = 0; i < R; ++i) sLam[k * NX + r0 + i] = lam_r[i];
     __syncthreads();
   }
   if (dead0) iters = a.max_pcg_iters;
@@ -403,7 +619,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
         for (int i = 0; i < NU; ++i)
           a.dzu_o[((size_t)b * (N - 1) + k) * NU + i] = sDU[k * NU + i];
     }
-    if (k == 0) a.pcg_iters[b] = iters;
+    if (lead) a.pcg_iters[b] = iters;
     return;
   }
   if (__syncthreads_or(bad_step) && on) {
@@ -440,11 +656,11 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       term = clamp_term(knot + mu * pen);
     }
     const float m = block_sum(term, red);
-    if (k == 0) sMerit[j] = m;
+    if (lead) sMerit[j] = m;
   }
 
   // ---- G: line search + rho schedule (line_search.cuh:12-98) ----
-  if (k == 0) {
+  if (lead) {
     float mbase, merit0;
     if (a.seeded) {
       mbase = a.mbase[b];
@@ -496,17 +712,68 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   }
 }
 
-// Launch one iteration kernel: one block per problem, one thread per knot
-// (N rounded up to a warp), the dynamic shared memory it needs.
-template <typename Kernel>
-inline int launch_iteration(Kernel kernel, const IterArgs* args, void* stream) {
-  const int threads = 32 * ((args->N + 31) / 32);
-  const size_t smem = iter_detail::smem_bytes(args->N);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The kernel of one variant: one block per problem, G W threads.
+template <bool kLineSearch, Blocks kBlocks, int G>
+__global__ void __launch_bounds__(G == 1 ? 128 : iter_detail::MAX_THREADS)
+iteration_kernel(const IterArgs a) {
+  sqp_iteration<kLineSearch, kBlocks, G>(a);
+}
+
+using IterationKernel = void (*)(IterArgs);
+
+// The compiled variants: (global, 1) and (shared, 1 | 2 | 4); null for any
+// other (layout, G).
+template <bool kLineSearch>
+inline IterationKernel iteration_variant(int layout, int G) {
+  if (layout == (int)Blocks::kGlobal && G == 1)
+    return iteration_kernel<kLineSearch, Blocks::kGlobal, 1>;
+  if (layout != (int)Blocks::kShared) return nullptr;
+  switch (G) {
+    case 1: return iteration_kernel<kLineSearch, Blocks::kShared, 1>;
+    case 2: return iteration_kernel<kLineSearch, Blocks::kShared, 2>;
+    case 4: return iteration_kernel<kLineSearch, Blocks::kShared, 4>;
+    default: return nullptr;
+  }
+}
+
+// Set a variant's dynamic shared memory for horizon N; its threads and bytes
+// go to *threads, *smem. Returns a CUDA error code.
+template <bool kLineSearch>
+inline int prepare_variant(int N, int layout, int G, IterationKernel* kernel,
+                           int* threads, size_t* smem) {
+  *kernel = iteration_variant<kLineSearch>(layout, G);
+  if (*kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = iter_detail::warp_threads(N) * G;
+  *smem = iter_detail::smem_bytes(N, static_cast<Blocks>(layout), G);
+  return static_cast<int>(cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem));
+}
+
+// Launch one iteration kernel: one block per problem, the variant's threads
+// and dynamic shared memory. A launch that the card refuses (too much
+// shared memory, too many threads) returns its error; nothing falls back.
+template <bool kLineSearch>
+inline int launch_iteration(const IterArgs* args, int layout, int G, void* stream) {
+  IterationKernel kernel;
+  int threads;
+  size_t smem;
+  const int err = prepare_variant<kLineSearch>(args->N, layout, G, &kernel, &threads, &smem);
+  if (err != 0) return err;
   kernel<<<args->B, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of a variant at horizon N
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+template <bool kLineSearch>
+inline int blocks_per_sm(int N, int layout, int G) {
+  IterationKernel kernel;
+  int threads, n = 0;
+  size_t smem;
+  if (prepare_variant<kLineSearch>(N, layout, G, &kernel, &threads, &smem) != 0) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace gato

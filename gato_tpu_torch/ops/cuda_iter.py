@@ -6,9 +6,11 @@ Port of gato_tpu/ops/pallas_iter.py:
   sqp_iter_core_reference  the plain PyTorch version: setup_kkt_batched ->
                            build_schur -> pcg_solve_batched -> compute_dz;
   sqp_iter_core_cuda       the kernel wrapper: csrc/iter.cu on a CUDA
-                           tensor (one block per problem, one thread per
-                           knot, N <= 128), the plain version on a CPU
-                           tensor;
+                           tensor (one block per problem, N <= 128), the
+                           plain version on a CPU tensor;
+  iteration_variant        the kernel variant that N takes: the PCG blocks
+                           in shared memory with G threads per knot up to
+                           N = 64, in the global scratch past that;
   launch_iteration         builds the IterArgs of csrc/sqp_iter.cuh and
                            launches csrc/iter.cu or csrc/bsqp_iter.cu.
 
@@ -30,7 +32,47 @@ from .kkt_fast import setup_kkt_batched
 from .pcg import pcg_solve_batched
 from .schur import build_schur, compute_dz
 
-MAX_KNOTS = 128  # one thread per knot, __launch_bounds__(128)
+MAX_KNOTS = 128  # one thread per knot in group 0, __launch_bounds__(128)
+NX, NU = 12, 6
+BLOCK_FLOATS = 4 * NX * NX  # S_main, phi, P_main, P_lower of one knot
+MERIT_SLOTS = 16  # merits in shared memory
+SMEM_LIMIT = 232_448  # dynamic shared memory of one block on sm_90
+MAX_THREADS = 256  # G W threads at 255 registers each fill an SM's 65,536
+LAYOUTS = {"global": 0, "shared": 1}
+# the shared layout's last N: every N of the bench grid but 128 (it would
+# fit up to N = 86)
+SHARED_MAX_N = 64
+# threads per knot (G) in the shared layout, both kernels: the fastest of
+# G in {1, 2, 4} in chip_smoke.py's timings at N=32, B=512 (PERF.md); at
+# N=64 bsqp_iter's G=2 is within 3 % of it. G W stays within MAX_THREADS.
+SHARED_GROUPS = 4
+
+
+def warp_threads(N: int) -> int:
+    """W, the threads of one group: N rounded up to a warp."""
+    return 32 * ((N + 31) // 32)
+
+
+def smem_bytes(N: int, layout: str, groups: int) -> int:
+    """Dynamic shared memory of one block, the formula of
+    csrc/sqp_iter.cuh::smem_bytes: X, U, lam, r, p, z, Ap, dz, 32 warp
+    partials, the merits, the line search's two words; the shared layout
+    adds the four 12x12 blocks of every knot and two buffers of one dot
+    partial per thread."""
+    floats = N * (7 * NX + 2 * NU) + 32 + MERIT_SLOTS + 2
+    if layout == "shared":
+        floats += BLOCK_FLOATS * N + 2 * groups * warp_threads(N)
+    return 4 * floats
+
+
+def iteration_variant(N: int) -> tuple[str, int]:
+    """(layout, G) of both iteration kernels (csrc/bsqp_iter.cu,
+    csrc/iter.cu) at horizon N: the blocks in shared memory with
+    SHARED_GROUPS threads per knot up to SHARED_MAX_N, the global scratch
+    with one thread per knot past it. Not a user setting: N decides."""
+    if N <= SHARED_MAX_N:
+        return "shared", SHARED_GROUPS
+    return "global", 1
 
 
 class _IterArgs(ctypes.Structure):
@@ -50,10 +92,13 @@ class _IterArgs(ctypes.Structure):
 def launch_iteration(name: str, model: RobotModel, cp: CostParams,
                      integrator_type: int, dt: float, tensors: dict, *,
                      max_pcg_iters: int, num_alphas: int = 0,
-                     adapt_rho: bool = False, seeded: bool = False):
+                     adapt_rho: bool = False, seeded: bool = False,
+                     variant: tuple[str, int] | None = None):
     """Launch csrc/<name>.cu (bsqp_iter or iter) on `tensors`, {IterArgs
     field: CUDA tensor}; fields left out are null. X, U, lam, xs, ref, fe
-    are checked here, the caller checks the rest."""
+    are checked here, the caller checks the rest. `variant` (layout, G)
+    names the kernel variant for a measurement; None takes
+    iteration_variant(N). A launch that the card refuses raises."""
     require_cuda_robot(model)
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
@@ -75,8 +120,10 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
     knot_floats = getattr(lib, f"gato_{name}_knot_floats")
     knot_floats.restype = ctypes.c_int
     fn = getattr(lib, f"gato_{name}_indy7")
-    fn.argtypes = [ctypes.POINTER(_IterArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_IterArgs), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    layout, groups = variant or iteration_variant(N)
     scratch = torch.empty(knot_floats() * B * N, dtype=torch.float32,
                           device=X.device)
     args = _IterArgs(scratch=scratch.data_ptr(),
@@ -85,9 +132,24 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
                      max_pcg_iters=max_pcg_iters, num_alphas=num_alphas,
                      adapt_rho=int(adapt_rho), seeded=int(seeded), dt=dt,
                      w=(ctypes.c_float * 7)(*cp.weights()))
-    err = fn(ctypes.byref(args), torch.cuda.current_stream(X.device).cuda_stream)
+    err = fn(ctypes.byref(args), LAYOUTS[layout], groups,
+             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch ({layout} layout, G={groups},"
+                           f" N={N}) failed: CUDA error {err}")
+
+
+def variant_resources(name: str, N: int, layout: str, groups: int):
+    """(shared-memory bytes, resident blocks per SM) of a variant of
+    csrc/<name>.cu at horizon N, as the library reports them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = load_library(name)
+    nbytes = getattr(lib, f"gato_{name}_smem_bytes")
+    per_sm = getattr(lib, f"gato_{name}_blocks_per_sm")
+    for f, res in ((nbytes, ctypes.c_longlong), (per_sm, ctypes.c_int)):
+        f.argtypes = [ctypes.c_int] * 3
+        f.restype = res
+    return nbytes(N, LAYOUTS[layout], groups), per_sm(N, LAYOUTS[layout], groups)
 
 
 def sqp_iter_core_reference(model: RobotModel, cp: CostParams, X, U, x_s,
@@ -109,15 +171,19 @@ def sqp_iter_core_reference(model: RobotModel, cp: CostParams, X, U, x_s,
 
 def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
                        f_ext, lam, rho, pcg_tol, skip, dt: float,
-                       max_pcg_iters: int, integrator_type: int = 2):
+                       max_pcg_iters: int, integrator_type: int = 2, *,
+                       variant: tuple[str, int] | None = None):
     """sqp_iter_core_reference's contract: csrc/iter.cu on CUDA tensors
-    (float32, N <= 128), the plain version on CPU tensors.
+    (float32, N <= 128), the plain version on CPU tensors. `variant` names
+    the kernel variant for a measurement (launch_iteration).
 
     The kernel replaces gato_tpu/ops/pallas_iter.py::_iter_kernel with
     phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh). Like them it is
-    bound by the generated per-knot KKT code's registers (it spills) and by
-    the PCG loop re-reading each knot's four 12x12 blocks from an
-    element-major global scratch."""
+    bound by the generated per-knot KKT code's registers (it spills) in
+    phases A-C; up to N = 64 the PCG loop reads each knot's four 12x12
+    blocks from shared memory, G threads per knot, so its traffic stays on
+    the SM; past that it re-reads them from an element-major global
+    scratch."""
     if X.device.type == "cpu":
         return sqp_iter_core_reference(model, cp, X, U, x_s, ref, f_ext, lam,
                                        rho, pcg_tol, skip, dt, max_pcg_iters,
@@ -136,7 +202,7 @@ def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
         dict(X=X, U=U, lam=lam, xs=x_s, ref=ref, fe=f_ext, rho=rho,
              eps=pcg_tol, conv=skip.to(torch.float32), lam_o=lam_o,
              pcg_iters=iters, dzx_o=dzx, dzu_o=dzu),
-        max_pcg_iters=max_pcg_iters)
+        max_pcg_iters=max_pcg_iters, variant=variant)
     sqp_iter_core_cuda.launches += 1
     return dzx, dzu, lam_o, iters
 

@@ -9,7 +9,8 @@ against the JAX package, float64 on the CPU, on identical numpy inputs:
 - the KKT assembly against the array-based gato_tpu.ops.kkt.setup_kkt,
   including the terminal knot as the kkt kernel forms it (the per-knot
   trace with the terminal tracking weight);
-- solver/bsqp.py::select_route, and the entry points' default device.
+- solver/bsqp.py::select_route, and the entry points' default device;
+- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N.
 
 PCG runs to 1e-10 here, so the two Krylov loops stop at the same count and
 their iterates agree to the tolerance-implied level.
@@ -26,7 +27,10 @@ from gato_tpu.ops.kkt_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_iter import iter_channels
 from gato_tpu.ops.pallas_pcg import pcg_channels
 from gato_tpu_torch.interop import model_from_numpy, state_from_numpy
-from gato_tpu_torch.ops.cuda_iter import sqp_iter_core_reference
+from gato_tpu_torch.ops.cuda_iter import (MAX_THREADS, SHARED_GROUPS,
+                                          SMEM_LIMIT, iteration_variant,
+                                          smem_bytes, sqp_iter_core_reference,
+                                          warp_threads)
 from gato_tpu_torch.ops.kkt_fast import (_mat, _vec,
                                          kkt_knot_channels_structured,
                                          setup_kkt_batched)
@@ -223,3 +227,30 @@ def test_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match='device="cpu"'):
                 call()
     assert load_robot("indy7", device="cpu").R_tree.device.type == "cpu"
+
+
+def test_iteration_variant_takes_shared_memory_where_it_fits():
+    """For every N from 2 to 128 the iteration kernels' (layout, G): the
+    four blocks in shared memory with SHARED_GROUPS threads per knot up to
+    N = 64, where smem_bytes fits the 232,448 bytes a block may use (it
+    would up to N = 86) and G W <= 256 threads; the global scratch with
+    G = 1 past N = 64. smem_bytes is csrc/sqp_iter.cuh's formula: today's
+    buffers (N 96 + 50 floats), plus 576 floats a knot and 2 G W
+    partials."""
+    shared = []
+    for N in range(2, 129):
+        layout, g = iteration_variant(N)
+        W = warp_threads(N)
+        assert W % 32 == 0 and N <= W < N + 32
+        assert smem_bytes(N, layout, g) <= SMEM_LIMIT and g * W <= MAX_THREADS
+        assert (smem_bytes(N, "shared", 1) <= SMEM_LIMIT) == (N <= 86)
+        if layout == "shared":
+            shared.append(N)
+            assert g == SHARED_GROUPS
+        else:
+            assert (layout, g) == ("global", 1)
+    assert shared == list(range(2, 65))
+    for N, base in ((32, 12_488), (64, 24_776), (128, 49_352)):
+        assert smem_bytes(N, "global", 1) == base
+        for g in (1, 2, 4):
+            assert smem_bytes(N, "shared", g) == base + 2_304 * N + 8 * g * warp_threads(N)
