@@ -15,12 +15,23 @@ cycle.
   long horizon  N=256, B=64, where "auto" takes the staged route by itself:
                 6 warm-up and 10 timed cycles.
 
+The pcg kernel comes in variants (layout, G, C): one CTA per problem with
+its blocks in shared memory, a thread-block cluster of C CTAs per problem,
+the global scratch (ops/cuda_pcg.py::pcg_variant takes one by N). Each
+variant's shared memory, CTAs per SM, resident clusters and ptxas line
+print as `[variant] pcg` lines; every variant that fits is held against the
+plain version and timed (`[pcg]` lines) on the steady-state systems at
+N=32 B=512 and N=256 B=64, and timed at PCG_EDGE_HORIZONS (B=512), where
+the shared variant meets the 2-CTA cluster; the staged route's cycle runs
+with pcg in the variant N takes and in the global one, in turns, at both
+shapes.
+
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ (one nvcc each, all
 at once), holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
 and 128, B=512, the shared layout's last N and the global layout, where
-the limits give way to float32's own measured noise), prints each
-iteration-kernel
+the limits give way to float32's own measured noise; pcg in every variant),
+prints each iteration-kernel
 variant's G, shared memory, blocks per SM and ptxas line, times bsqp_iter
 and iter in every variant (global layout, shared at G = 1, 2, 4) at N=32
 and N=64 with and without the Krylov loop, counts each path's launches
@@ -36,6 +47,7 @@ two lines of standard output are the kernels' JSON record and
 line before them.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -53,6 +65,7 @@ from gato_tpu_torch.api.common import figure8, rk4_step
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
+from gato_tpu_torch.ops import cuda_pcg
 from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch.ops.cuda_iter import (iteration_variant, smem_bytes,
                                           sqp_iter_core_cuda,
@@ -60,7 +73,13 @@ from gato_tpu_torch.ops.cuda_iter import (iteration_variant, smem_bytes,
                                           variant_resources)
 from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
-from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda
+from gato_tpu_torch.ops.cuda_pcg import CLUSTER_SIZES
+from gato_tpu_torch.ops.cuda_pcg import GROUPS as PCG_GROUPS
+from gato_tpu_torch.ops.cuda_pcg import fits as pcg_fits
+from gato_tpu_torch.ops.cuda_pcg import library_smem_bytes as pcg_library_bytes
+from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda, pcg_variant
+from gato_tpu_torch.ops.cuda_pcg import smem_bytes as pcg_smem_bytes
+from gato_tpu_torch.ops.cuda_pcg import variant_resources as pcg_resources
 from gato_tpu_torch.ops.cuda_sim import rk4_plain, rk4_step_batched
 from gato_tpu_torch.ops.cuda_solve import (IterState, Problem, sqp_iter_cuda,
                                            sqp_iter_reference,
@@ -82,6 +101,8 @@ N_LONG, B_LONG, K_LONG = 256, 64, 10
 # layout's last N, the global layout
 VARIANTS = (("global", 1), ("shared", 1), ("shared", 2), ("shared", 4))
 N_WIDE, CHECK_HORIZONS = 64, (64, 128)
+# where the pcg kernel's shared variant meets the 2-CTA cluster (B=512)
+PCG_EDGE_HORIZONS = (64, 80, 95)
 RK4_RTOL = 1e-5
 # bsqp_iter against its plain version (float32, identical input): the
 # fraction of lanes with the same step and with a PCG count within
@@ -685,10 +706,73 @@ def lane_rel(a, b):
     return d / b.double().flatten(1).abs().max(1).values
 
 
+def pcg_variants(n):
+    """Every variant (layout, G, C) of the pcg kernel that fits horizon n:
+    the global one, the shared one at each G, the cluster one at each G and
+    C."""
+    return ([("global", 1, 1)]
+            + [("shared", g, 1) for g in PCG_GROUPS if pcg_fits(n, "shared", g)]
+            + [("cluster", g, c) for c in CLUSTER_SIZES for g in PCG_GROUPS
+               if pcg_fits(n, "cluster", g, c)])
+
+
+def ptxas_pcg():
+    """{(layout, G or the global kernel's thread bound): ptxas' register
+    and spill lines} of the pcg kernel's compiled variants."""
+    out, key = {}, None
+    for line in _build.ptxas_report("pcg").splitlines():
+        m = re.search(r"pcg_smem_kernelILi(\d+)ELb([01])E", line)
+        g = re.search(r"pcg_kernelILi(\d+)E", line)
+        if m:
+            key = (("shared", "cluster")[int(m.group(2))], int(m.group(1)))
+            out[key] = []
+        elif g:
+            key = ("global", int(g.group(1)))
+            out[key] = []
+        elif key is not None:
+            out[key].append(line.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def report_pcg_variants(n, b, sms):
+    """A [variant] line for each pcg variant that fits horizon n at batch
+    b: shared bytes per CTA, C, CTAs per SM, clusters resident
+    (cudaOccupancyMaxActiveClusters), the waves that the batch takes, the
+    ptxas line."""
+    px = ptxas_pcg()
+    for v in pcg_variants(n):
+        nbytes, per_sm, clusters = pcg_resources(n, b, *v)
+        if v[0] == "global":
+            key = ("global", next(t for t in (128, 256, 512, 1024) if n <= t))
+            waves = -(-b // (per_sm * sms))
+        else:
+            key = v[:2]
+            waves = -(-b // (clusters if v[0] == "cluster" else per_sm * sms))
+        taken = " (the variant N takes)" if pcg_variant(n) == v else ""
+        log(f"[variant] pcg N={n} B={b} {v[0]} G={v[1]} C={v[2]}{taken}: {nbytes} bytes "
+            f"of shared memory a CTA, {per_sm} CTAs per SM, "
+            f"{'clusters resident ' + str(clusters) if clusters >= 0 else 'no cluster'}, "
+            f"{waves} wave(s) of the batch on {sms} SMs; ptxas: {px[key]}")
+
+
+def check_pcg_smem_mirror():
+    """The library's shared-memory byte count of every pcg variant against
+    its Python mirror (ops/cuda_pcg.py::smem_bytes) at every N the kernel
+    takes."""
+    bad = [(m, v) for m in range(1, 1025) for v in pcg_variants(m)
+           if pcg_library_bytes(m, *v) != pcg_smem_bytes(m, *v)]
+    if bad:
+        raise RuntimeError(f"pcg smem_bytes differs from the library at {bad[:4]}")
+    log("[variant] pcg bytes of shared memory equal ops/cuda_pcg.py::smem_bytes "
+        "for every variant at N = 1..1024")
+
+
 def compare_pcg(f, kkt, lam0):
     """The pcg kernel against pcg_solve_batched on the identical assembled
     system (plain build_schur of the plain KKT), and both float32 arms
-    against the float64 plain version on that system.
+    against the float64 plain version on that system: the variant that
+    f.N takes first, then every other variant that fits, each held to the
+    same limits.
 
     Where float32 rounding alone moves lam by more than LAM_RTOL (the
     float32 plain version's own distance from the float64 one: about 1e-2
@@ -703,48 +787,92 @@ def compare_pcg(f, kkt, lam0):
               f.hp.pcg_tol)
     skip = torch.zeros(f.B, dtype=torch.bool, device=f.dev)
     mpcg = P["max_pcg_iters"]
-    lk, ik = pcg_solve_batched_cuda(*system, mpcg, skip)
     lp, ip = pcg_solve_batched(*system, mpcg, skip)
     l64, i64 = pcg_solve_batched(*(t.double() for t in system), mpcg, skip)
+    p_rel, p_cnt = lane_rel(lp, l64), (ip - i64).abs()
+    taken = pcg_variant(f.N)
+    results = {}
+    for v in [taken] + [v for v in pcg_variants(f.N) if v != taken]:
+        lk, ik = pcg_solve_batched_cuda(*system, mpcg, skip, variant=v)
+        torch.cuda.synchronize()
+        if not torch.isfinite(lk).all():
+            raise RuntimeError(f"pcg kernel output is not finite ({v})")
+        same = ik == ip
+        k_rel, k_cnt = lane_rel(lk, l64), (ik - i64).abs()
+        f64_ok = ((k_rel <= max(LAM_RTOL, F64_FACTOR * p_rel.max().item()))
+                  & (k_cnt <= max(PCG_SLACK, F64_FACTOR * p_cnt.max().item())))
+        res = dict(same_frac=same.double().mean().item(),
+                   max_diff=int((ik - ip).abs().max()),
+                   lam_rel=normwise(lk[same], lp[same]),
+                   lam_limit=max(LAM_RTOL, normwise(lp[same], l64[same])),
+                   lam_max_abs_err=(lk[same] - lp[same]).abs().max().item(),
+                   f64_rule_frac=f64_ok.double().mean().item(),
+                   kernel_f64_lam_rel_max=k_rel.max().item(),
+                   plain32_f64_lam_rel_max=p_rel.max().item(),
+                   kernel_f64_max_diff=int(k_cnt.max()),
+                   plain32_f64_max_diff=int(p_cnt.max()),
+                   iters_sum=int(ik.sum()), iters_max=int(ik.max()),
+                   iters_mean=ik.double().mean().item(),
+                   at_cap_frac=(ik == mpcg).double().mean().item())
+        log(f"[compare] pcg kernel ({v[0]}, G={v[1]}, C={v[2]}"
+            f"{', the variant N takes' if v == taken else ''}) vs pcg_solve_batched "
+            f"(N={f.N}, B={f.B}, identical "
+            f"assembled system): identical counts on {res['same_frac']:.4f} of lanes "
+            f"(tolerance >= {PCG_SAME_MIN}), largest difference {res['max_diff']}; "
+            f"lam normwise rel where counts agree {res['lam_rel']:.3e} (tolerance "
+            f"{res['lam_limit']:.3e}: {LAM_RTOL}, or plain32's own distance from "
+            f"float64 where larger); against the float64 plain version, lane by "
+            f"lane (the kernel within {F64_FACTOR}x of plain32's largest distance, "
+            f"floors {LAM_RTOL} and {PCG_SLACK}): holds on "
+            f"{res['f64_rule_frac']:.4f} of lanes (tolerance "
+            f">= {PCG_SAME_MIN}); largest lam rel kernel "
+            f"{res['kernel_f64_lam_rel_max']:.3e} / plain32 "
+            f"{res['plain32_f64_lam_rel_max']:.3e}, largest count diff kernel "
+            f"{res['kernel_f64_max_diff']} / plain32 {res['plain32_f64_max_diff']}; "
+            f"iterations sum {res['iters_sum']}, mean {res['iters_mean']:.2f}, max "
+            f"{res['iters_max']}, at the cap {res['at_cap_frac']:.4f}")
+        ok = (res["same_frac"] >= PCG_SAME_MIN and res["lam_rel"] <= res["lam_limit"]
+              and res["f64_rule_frac"] >= PCG_SAME_MIN)
+        if not ok:
+            raise RuntimeError(f"pcg kernel ({v}) disagrees with its plain version: {res}")
+        results[v] = res
+    return system, skip, results[taken]
+
+
+def time_pcg(n, b, system, skip, card, reps):
+    """ms per launch of pcg in every variant that fits horizon n, on one
+    system: two rounds in opposite orders, their mean (CUDA events); the
+    fastest beside the variant that n takes."""
+    mpcg = P["max_pcg_iters"]
+    variants = pcg_variants(n)
+    rounds = {v: [] for v in variants}
+    for order in (variants, variants[::-1]):
+        for v in order:
+            rounds[v].append(event_ms(
+                lambda: pcg_solve_batched_cuda(*system, mpcg, skip, variant=v), reps))
+    ms = {v: statistics.mean(t) for v, t in rounds.items()}
+    taken, fastest = pcg_variant(n), min(ms, key=ms.get)
+    for v in variants:
+        log(f"[pcg] {card}: N={n} B={b} {v[0]} G={v[1]} C={v[2]}"
+            f"{' (the variant N takes)' if v == taken else ''}: {ms[v]:.4f} ms per "
+            f"launch; rounds {[round(t, 4) for t in rounds[v]]}")
+    log(f"[pcg] N={n} B={b}: fastest {fastest} {ms[fastest]:.4f} ms; the variant N "
+        f"takes {taken} {ms[taken]:.4f} ms ({ms[taken] / ms[fastest] - 1:+.2%}; within "
+        f"3 %: {ms[taken] <= 1.03 * ms[fastest]})")
+
+
+def pcg_same_bits_as_global(system, skip):
+    """At N <= 32 (one warp) the shared variant at G=1 sums every matvec row
+    and every dot product in the global variant's order, so its lam and
+    counts must equal the global variant's bit for bit."""
+    mpcg = P["max_pcg_iters"]
+    a, b = (pcg_solve_batched_cuda(*system, mpcg, skip, variant=v)
+            for v in (("global", 1, 1), ("shared", 1, 1)))
     torch.cuda.synchronize()
-    if not torch.isfinite(lk).all():
-        raise RuntimeError("pcg kernel output is not finite")
-    same = ik == ip
-    k_rel, p_rel = lane_rel(lk, l64), lane_rel(lp, l64)
-    k_cnt, p_cnt = (ik - i64).abs(), (ip - i64).abs()
-    f64_ok = ((k_rel <= max(LAM_RTOL, F64_FACTOR * p_rel.max().item()))
-              & (k_cnt <= max(PCG_SLACK, F64_FACTOR * p_cnt.max().item())))
-    res = dict(same_frac=same.double().mean().item(),
-               max_diff=int((ik - ip).abs().max()),
-               lam_rel=normwise(lk[same], lp[same]),
-               lam_limit=max(LAM_RTOL, normwise(lp[same], l64[same])),
-               lam_max_abs_err=(lk[same] - lp[same]).abs().max().item(),
-               f64_rule_frac=f64_ok.double().mean().item(),
-               kernel_f64_lam_rel_max=k_rel.max().item(),
-               plain32_f64_lam_rel_max=p_rel.max().item(),
-               kernel_f64_max_diff=int(k_cnt.max()),
-               plain32_f64_max_diff=int(p_cnt.max()),
-               iters_sum=int(ik.sum()), iters_max=int(ik.max()),
-               at_cap_frac=(ik == mpcg).double().mean().item())
-    log(f"[compare] pcg kernel vs pcg_solve_batched (N={f.N}, B={f.B}, identical "
-        f"assembled system): identical counts on {res['same_frac']:.4f} of lanes "
-        f"(tolerance >= {PCG_SAME_MIN}), largest difference {res['max_diff']}; "
-        f"lam normwise rel where counts agree {res['lam_rel']:.3e} (tolerance "
-        f"{res['lam_limit']:.3e}: {LAM_RTOL}, or plain32's own distance from "
-        f"float64 where larger); against the float64 plain version, lane by "
-        f"lane (the kernel within {F64_FACTOR}x of plain32's largest distance, "
-        f"floors {LAM_RTOL} and {PCG_SLACK}): holds on "
-        f"{res['f64_rule_frac']:.4f} of lanes (tolerance "
-        f">= {PCG_SAME_MIN}); largest lam rel kernel "
-        f"{res['kernel_f64_lam_rel_max']:.3e} / plain32 "
-        f"{res['plain32_f64_lam_rel_max']:.3e}, largest count diff kernel "
-        f"{res['kernel_f64_max_diff']} / plain32 {res['plain32_f64_max_diff']}; "
-        f"iterations sum {res['iters_sum']}, max {res['iters_max']}")
-    ok = (res["same_frac"] >= PCG_SAME_MIN and res["lam_rel"] <= res["lam_limit"]
-          and res["f64_rule_frac"] >= PCG_SAME_MIN)
-    if not ok:
-        raise RuntimeError(f"pcg kernel disagrees with its plain version: {res}")
-    return system, skip, res
+    same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    log(f"[pcg] the shared variant at G=1 equals the global variant bit for bit: {same}")
+    if not same:
+        raise RuntimeError("pcg: the shared variant at G=1 differs from the global one")
 
 
 def compare_merit(f, X, U, dzx, dzu, x_s, ref):
@@ -781,6 +909,35 @@ def dense_btd(main, lower):
         D[:, (k + 1) * nx:(k + 2) * nx, k * nx:(k + 1) * nx] = lower[:, k]
         D[:, k * nx:(k + 1) * nx, (k + 1) * nx:(k + 2) * nx] = lower[:, k].mT
     return D
+
+
+@contextlib.contextmanager
+def pcg_forced(variant):
+    """pcg_solve_batched_cuda takes `variant` wherever it would take
+    pcg_variant(N): the staged route measured with another pcg variant."""
+    taken = cuda_pcg.pcg_variant
+    cuda_pcg.pcg_variant = lambda n: variant
+    try:
+        yield
+    finally:
+        cuda_pcg.pcg_variant = taken
+
+
+def staged_pcg_ab(f, state, i0, card, k):
+    """The staged route's per-cycle median with pcg in the variant f.N
+    takes and in the global variant, in turns (taken, global, global,
+    taken), k cycles each: pcg's gain end to end within one run."""
+    solve = f.solver(f.settings_with("off", "off"))
+    med = {"taken": [], "global": []}
+    for arm in ("taken", "global", "global", "taken"):
+        with pcg_forced(("global", 1, 1)) if arm == "global" else contextlib.nullcontext():
+            ms_cycle = f.run(state, i0, solve, f.plant_kernel, k)[1]
+        med[arm].append(statistics.median(ms_cycle))
+    log(f"[timing] {card}: staged route N={f.N} B={f.B}, per-cycle median over "
+        f"{k} cycles, pcg in {pcg_variant(f.N)} {med['taken']} ms against pcg in "
+        f"the global variant {med['global']} ms (in turns: taken, global, "
+        f"global, taken); means {statistics.mean(med['taken']):.3f} against "
+        f"{statistics.mean(med['global']):.3f} ms")
 
 
 def route_run(f, state, i0, gates, expect, card):
@@ -820,6 +977,9 @@ def main():
     ops = generated_op_counts()
     log(f"[bound] operations per call of the generated functions: {ops}")
     report_variants()
+    check_pcg_smem_mirror()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report_pcg_variants(N, B, sms)
 
     f = Fig8(dev)
     state, i0 = f.steady_state()
@@ -834,6 +994,7 @@ def main():
     ref = f.ref(i0 - 1)
     kkt_p, kkt_err = compare_kkt(f, X, U, x_s, ref)
     pcg_sys, pcg_skip, pcg_res = compare_pcg(f, kkt_p, lam)
+    pcg_same_bits_as_global(pcg_sys, pcg_skip)
     dzx, dzu = scrubbed(core_ref[0], core_ref[1])
     merit_args, merit_err = compare_merit(f, X, U, dzx, dzu, x_s, ref)
 
@@ -882,6 +1043,20 @@ def main():
     time_variants(fw, state_w, i0_w - 1, card)
     del fw, state_w
 
+    # ---- pcg in every variant: N=32 B=512, and where shared meets cluster ----
+    time_pcg(N, B, pcg_sys, pcg_skip, card, 10)
+    for n in PCG_EDGE_HORIZONS:
+        fe = Fig8(dev, n, B)
+        (Xe, Ue, lame, xse), i0_e = fe.steady_state()
+        kkt_e = setup_kkt_batched(fe.model, fe.cp, Xe, Ue, xse, fe.ref(i0_e - 1),
+                                  fe.f_ext, DT)
+        sch_e = build_schur(kkt_e, fe.hp.rho, 6)
+        report_pcg_variants(n, B, sms)
+        time_pcg(n, B, (sch_e.S_main, sch_e.S_lower, sch_e.P_main, sch_e.P_lower,
+                        sch_e.gamma, lame, fe.hp.pcg_tol),
+                 torch.zeros(B, dtype=torch.bool, device=dev), card, 10)
+        del fe, kkt_e, sch_e
+
     # ---- the main path: K cycles on the default route, launches counted ----
     reset_launches()
     state_k, ms_k, err_k, pcg_k, step_k = f.run(state, i0, f.solve_kernel,
@@ -911,6 +1086,7 @@ def main():
     staged_l, med_staged, e_staged = route_run(
         f, state, i0, ("off", "off"), dict(kkt=solves, pcg=solves, merit=solves, rk4=K),
         card)
+    staged_pcg_ab(f, state, i0, card, K)
     log(f"[tracking] lane 0 mean EE error over {K} cycles: kernel route "
         f"{ek:.4f} m, fused-iteration route {e_fused:.4f} m, staged route "
         f"{e_staged:.4f} m, plain route {ep:.4f} m (limit {TRACK_MAX_M} m, "
@@ -927,7 +1103,9 @@ def main():
     Xl, Ul, laml, xsl = state_l
     refl = fl.ref(i0_l - 1)
     kkt_pl, kkt_err_l = compare_kkt(fl, Xl, Ul, xsl, refl)
+    report_pcg_variants(N_LONG, B_LONG, sms)
     pcg_sys_l, pcg_skip_l, pcg_res_l = compare_pcg(fl, kkt_pl, laml)
+    time_pcg(N_LONG, B_LONG, pcg_sys_l, pcg_skip_l, card, 5)
     core_l = sqp_iter_core_reference(fl.model, fl.cp, Xl, Ul, xsl, refl, fl.f_ext,
                                      laml, fl.hp.rho, fl.hp.pcg_tol, pcg_skip_l,
                                      DT, mpcg)
@@ -938,6 +1116,17 @@ def main():
     g_flat = pcg_sys_l[4].reshape(B_LONG, -1, 1)
     long_library_ms = event_ms(lambda: torch.linalg.solve(S_dense, g_flat), 3)
     del S_dense
+    long_bound = bound(B_LONG * N_LONG * PCG_SETUP_OPS
+                       + N_LONG * PCG_ITER_OPS * pcg_res_l["iters_sum"],
+                       nbytes(*pcg_sys_l, pcg_skip_l) + nbytes(laml)
+                       + nbytes(torch.empty(B_LONG, device=dev)))
+    log(f"[bound] pcg at N={N_LONG} B={B_LONG} ({pcg_variant(N_LONG)}): "
+        f"{long_pcg_ms:.4f} ms on the card, bound {long_bound[0]:.5f} ms by "
+        f"{long_bound[1]} ({long_bound[0] / long_pcg_ms:.4f} of the bound reached); "
+        f"torch.linalg.solve {long_library_ms:.3f} ms; PCG iterations mean "
+        f"{pcg_res_l['iters_mean']:.2f}, max {pcg_res_l['iters_max']}, at the cap "
+        f"{pcg_res_l['at_cap_frac']:.4f}")
+    staged_pcg_ab(fl, state_l, i0_l, card, K_LONG)
     reset_launches()
     state_l2, ms_l, err_l, pcg_l, step_l = fl.run(state_l, i0_l, fl.solve_kernel,
                                                   fl.plant_kernel, K_LONG)

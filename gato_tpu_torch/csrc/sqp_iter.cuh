@@ -56,6 +56,7 @@
 
 #include "block_ops.cuh"
 #include "generated/indy7.cuh"
+#include "krylov.cuh"
 
 namespace gato {
 
@@ -109,6 +110,9 @@ enum class Blocks { kGlobal = 0, kShared = 1 };
 
 namespace iter_detail {
 
+using krylov::btd_rows;
+using krylov::knot_total;
+using krylov::rows_dot;
 namespace robot = gato::indy7;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
@@ -230,77 +234,6 @@ __device__ inline float knot_dot(const float* a, const float* b, int k) {
   float s = 0.0f;
   for (int i = 0; i < NX; ++i) s += a[k * NX + i] * b[k * NX + i];
   return clamp_term(s);
-}
-
-// Rows [r0, r0 + R) of btd_matvec at knot k, the blocks in shared memory
-// (element-major, stride N: blk[e * N + k]) and x read through x(knot, c);
-// each row in btd_matvec's order of summation (main, lower, upper, each
-// over c ascending; a missing neighbour adds 0 x 0, btd_matvec's +0). The
-// loop over c is unrolled NX / R times only, so the loop body stays about
-// 36 loads long whatever R is (a fully unrolled 12-row body is some 48 KB
-// of code, which the instruction cache does not hold).
-template <int R, typename X>
-__device__ __forceinline__ void btd_rows(const float* blk, int N, int k, int r0,
-                                         int em, int el, X x, float (&y)[R]) {
-  constexpr int CU = NX / R;
-  const bool prev = k > 0, next = k < N - 1;
-  const float* M = blk + (size_t)(em + r0 * NX) * N + k;       // (r0 + i, c)
-  const float* Lp = blk + (size_t)(el + r0 * NX) * N + k - 1;  // knot k-1's
-  const float* Lt = blk + (size_t)(el + r0) * N + k;           // (c, r0 + i)
-  float acc[R], t1[R], t2[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = t1[i] = t2[i] = 0.0f;
-#pragma unroll 1
-  for (int c0 = 0; c0 < NX; c0 += CU) {
-#pragma unroll
-    for (int cc = 0; cc < CU; ++cc) {
-      const int c = c0 + cc;
-      const float xk = x(k, c);
-      const float xp = prev ? x(k - 1, c) : 0.0f;
-      const float xn = next ? x(k + 1, c) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        acc[i] += M[(i * NX + c) * N] * xk;
-        t1[i] += (prev ? Lp[(i * NX + c) * N] : 0.0f) * xp;
-        t2[i] += (next ? Lt[(c * NX + i) * N] : 0.0f) * xn;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) y[i] = acc[i] + t1[i] + t2[i];
-}
-
-template <int R>
-__device__ __forceinline__ float rows_dot(const float (&a)[R], const float (&b)[R]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) s += a[i] * b[i];
-  return s;
-}
-
-// The sum over knots of clamp(sum over the G groups of each knot's partial),
-// the same value in every thread. One warp (G = 1, N <= 32): shuffles only.
-// Otherwise each group writes its partials to part (G W floats), one
-// barrier, and every warp sums all knots in the same order.
-template <int G>
-__device__ __forceinline__ float knot_total(float partial, float* part, int W,
-                                            int N, int k, int g, bool one_warp) {
-  float v;
-  if (G == 1 && one_warp) {
-    v = clamp_term(partial);
-  } else {
-    part[g * W + k] = partial;
-    __syncthreads();
-    v = 0.0f;
-    for (int kk = threadIdx.x & 31; kk < N; kk += 32) {
-      float s = part[kk];
-#pragma unroll
-      for (int h = 1; h < G; ++h) s += part[h * W + kk];
-      v += clamp_term(s);
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return __shfl_sync(0xffffffffu, v, 0);
 }
 
 }  // namespace iter_detail
@@ -521,7 +454,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
     };
     float lam_r[R], r_r[R], p_r[R], z_r[R], ap_r[R];
     if (in) {
-      btd_rows<R>(sBlk, N, k, r0, SB_SM, SB_PHI,
+      btd_rows<NX, R>(sBlk, N, k, r0, SB_SM, SB_PHI,
                   [&](int kk, int c) { return sLam[kk * NX + c]; }, ap_r);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -533,7 +466,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
     sync();
     bool bad_local = false;
     if (in) {
-      btd_rows<R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
+      btd_rows<NX, R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         p_r[i] = z_r[i];
@@ -548,7 +481,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
     bool active = !skip && !dead0 && fabsf(rho_c) >= PCG_ABS_TOL;
     for (int it = 0; it < a.max_pcg_iters && active; ++it) {
       ++iters;
-      if (in) btd_rows<R>(sBlk, N, k, r0, SB_SM, SB_PHI, pvec, ap_r);
+      if (in) btd_rows<NX, R>(sBlk, N, k, r0, SB_SM, SB_PHI, pvec, ap_r);
       const float pAp = knot_total<G>(in ? rows_dot(p_r, ap_r) : 0.0f, partA, W, N, k, g,
                                       one_warp);
       const float alpha = rho_c / (pAp == 0.0f ? 1.0f : pAp);
@@ -560,7 +493,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
           sR[(r0 + i) * N + k] = r_r[i];
         }
       sync();
-      if (in) btd_rows<R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
+      if (in) btd_rows<NX, R>(sBlk, N, k, r0, SB_PM, SB_PL, rvec, z_r);
       const float rho_new = knot_total<G>(in ? rows_dot(r_r, z_r) : 0.0f, partB, W, N, k, g,
                                           one_warp);
       const bool converged = fabsf(rho_new) < PCG_ABS_TOL + eps * rho_init;

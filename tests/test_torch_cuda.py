@@ -32,7 +32,10 @@ from gato_tpu_torch.ops.cuda_iter import (SMEM_LIMIT, smem_bytes,
                                           sqp_iter_core_reference)
 from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
-from gato_tpu_torch.ops.cuda_pcg import _PcgArgs, pcg_solve_batched_cuda
+from gato_tpu_torch.ops.cuda_pcg import (MAX_KNOTS, SHARED_GROUPS,
+                                         SHARED_MAX_N, _PcgArgs, fits,
+                                         pcg_solve_batched_cuda,
+                                         pcg_variant)
 from gato_tpu_torch.ops.cuda_sim import rk4_plain, rk4_step_batched
 from gato_tpu_torch.ops.cuda_solve import (IterState, Problem, sqp_iter_cuda,
                                            sqp_iter_reference,
@@ -244,40 +247,54 @@ def test_kkt_and_merit_kernels_match_plain(dev):
         assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
 
 
-def test_pcg_kernel_matches_plain(dev):
-    """A real Schur system at N=40, 300 and 600 (every block size of the
-    kernel): lane 0's warm start holds a NaN (no iterations, max_iters),
-    lane 1 is skipped (0, warm start kept); elsewhere counts within 3 and
-    lam normwise within 1e-3 where the counts agree. A launch that the
-    kernel refuses returns its CUDA error."""
+# the pcg kernel's variants at their edges: the shared variant's last N and
+# the first cluster one, clusters at 256 and 600, the largest N; a 2-CTA
+# cluster at G=2 and the global variant forced
+PCG_CASES = ((SHARED_MAX_N, None), (SHARED_MAX_N + 1, None), (256, None),
+             (600, None), (MAX_KNOTS, None), (150, ("cluster", 2, 2)),
+             (300, ("global", 1, 1)))
+
+
+@pytest.mark.parametrize("N,variant", PCG_CASES)
+def test_pcg_kernel_matches_plain(dev, N, variant):
+    """A real Schur system at N, in the variant that pcg_variant(N) takes or
+    the one forced: lane 0's warm start holds a NaN (no iterations,
+    max_iters), lane 1 is skipped (0, warm start kept); elsewhere counts
+    within 3 and lam normwise within 1e-3 where the counts agree. A launch
+    that the kernel refuses returns its CUDA error, and the wrapper
+    raises."""
     m = load_robot("indy7", torch.float32, dev)
-    for N in (40, 300, 600):
-        p = _problem(dev, 8, N, 3 * N)
-        kkt = setup_kkt_batched(m, COST, p["X"], p["U"], p["x_s"], p["ref"],
-                                p["f_ext"], 0.01)
-        sch = build_schur(kkt, p["rho"], 6)
-        lam0 = p["lam"].clone()
-        lam0[0, N // 2, 3] = float("nan")
-        skip = torch.zeros(8, dtype=torch.bool, device=dev)
-        skip[1] = True
-        eps = torch.full((8,), 1e-4, device=dev)
-        system = (sch.S_main, sch.S_lower, sch.P_main, sch.P_lower, sch.gamma,
-                  lam0, eps, 200, skip)
-        before = pcg_solve_batched_cuda.launches
-        lk, ik = pcg_solve_batched_cuda(*system)
-        _launched(pcg_solve_batched_cuda, before)
-        lp, ip = pcg_solve_batched(*system)
-        assert ik[0] == 200 and ik[1] == 0
-        torch.testing.assert_close(lk[:2], lam0[:2], equal_nan=True, rtol=0, atol=0)
-        diff = (ik - ip)[2:].abs()
-        assert diff.max() <= 3
-        same = torch.cat([torch.zeros(2, dtype=torch.bool, device=dev), diff == 0])
-        assert (lk[same] - lp[same]).abs().max() <= 1e-3 * lp[same].abs().max()
+    p = _problem(dev, 8, N, 3 * N)
+    kkt = setup_kkt_batched(m, COST, p["X"], p["U"], p["x_s"], p["ref"],
+                            p["f_ext"], 0.01)
+    sch = build_schur(kkt, p["rho"], 6)
+    lam0 = p["lam"].clone()
+    lam0[0, N // 2, 3] = float("nan")
+    skip = torch.zeros(8, dtype=torch.bool, device=dev)
+    skip[1] = True
+    eps = torch.full((8,), 1e-4, device=dev)
+    system = (sch.S_main, sch.S_lower, sch.P_main, sch.P_lower, sch.gamma,
+              lam0, eps, 200, skip)
+    before = pcg_solve_batched_cuda.launches
+    lk, ik = pcg_solve_batched_cuda(*system, variant=variant)
+    _launched(pcg_solve_batched_cuda, before)
+    lp, ip = pcg_solve_batched(*system)
+    print(f"pcg N={N} {variant or pcg_variant(N)}: counts {ik.tolist()}, "
+          f"plain {ip.tolist()}")
+    assert ik[0] == 200 and ik[1] == 0
+    torch.testing.assert_close(lk[:2], lam0[:2], equal_nan=True, rtol=0, atol=0)
+    diff = (ik - ip)[2:].abs()
+    assert diff.max() <= 3
+    same = torch.cat([torch.zeros(2, dtype=torch.bool, device=dev), diff == 0])
+    assert (lk[same] - lp[same]).abs().max() <= 1e-3 * lp[same].abs().max()
+    if N > SHARED_MAX_N and not fits(N, "shared", SHARED_GROUPS):
+        with pytest.raises(RuntimeError, match="pcg kernel launch"):
+            pcg_solve_batched_cuda(*system, variant=("shared", SHARED_GROUPS, 1))
     # nx = 13 is not compiled: the launch function returns an error code
     lib = load_library("pcg")
     lib.gato_pcg.argtypes = [ctypes.POINTER(_PcgArgs), ctypes.c_int, ctypes.c_void_p]
     lib.gato_pcg.restype = ctypes.c_int
-    args = _PcgArgs(*([None] * 11), 1, 2, 1)
+    args = _PcgArgs(*([None] * 11), 1, 2, 1, 0, 1, 1)
     assert lib.gato_pcg(ctypes.byref(args), 13,
                         torch.cuda.current_stream().cuda_stream) != 0
 
