@@ -26,18 +26,26 @@ the shared variant meets the 2-CTA cluster; the staged route's cycle runs
 with pcg in the variant N takes and in the global one, in turns, at both
 shapes.
 
+The kkt kernel comes in variants (layout, G): staged, G threads per knot
+sharing the generated knot_kkt's stages (G = 2, 4), and the earlier
+one-thread kernel ("one", 1). Each variant's registers, spills, shared
+memory and CTAs per SM print as `[variant] kkt` lines; every variant is
+held against the plain version and timed (`[kkt]` lines) at N=32 B=512
+and N=256 B=64.
+
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ (one nvcc each, all
 at once), holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
 and 128, B=512, the shared layout's last N and the global layout, where
-the limits give way to float32's own measured noise; pcg in every variant),
-prints each iteration-kernel
-variant's G, shared memory, blocks per SM and ptxas line, times bsqp_iter
-and iter in every variant (global layout, shared at G = 1, 2, 4) at N=32
-and N=64 with and without the Krylov loop, counts each path's launches
-with the counts set to 0 just before it, times every route's cycle with
-CUDA events, checks lane 0's fig-8 tracking error on every N=32 route, and
-computes each kernel's bound from this run's inputs.
+the limits give way to float32's own measured noise; pcg and kkt in every
+variant), prints each iteration-kernel variant's G, phase A (the staged
+KKT or the one-thread knot_kkt), shared memory, blocks per SM and ptxas
+line, times bsqp_iter and iter in every variant (global layout, shared at
+G = 1, 2, 4, and at G = 4 with either phase A) at N=32 and N=64 with and
+without the Krylov loop, counts each path's launches with the counts set
+to 0 just before it, times every route's cycle with CUDA events, checks
+lane 0's fig-8 tracking error on every N=32 route, and computes each
+kernel's bound from this run's inputs.
 
     python3 chip_smoke.py
 
@@ -67,11 +75,13 @@ from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.ops import cuda_pcg
 from gato_tpu_torch.ops.cost import CostParams
-from gato_tpu_torch.ops.cuda_iter import (iteration_variant, smem_bytes,
-                                          sqp_iter_core_cuda,
+from gato_tpu_torch.ops.cuda_iter import (iteration_variant, phase_a_default,
+                                          smem_bytes, sqp_iter_core_cuda,
                                           sqp_iter_core_reference,
                                           variant_resources)
-from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
+from gato_tpu_torch.ops.cuda_kkt import KKT_GROUPS, setup_kkt_batched_cuda
+from gato_tpu_torch.ops.cuda_kkt import VARIANTS as KKT_VARIANTS
+from gato_tpu_torch.ops.cuda_kkt import variant_resources as kkt_resources
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import CLUSTER_SIZES
 from gato_tpu_torch.ops.cuda_pcg import GROUPS as PCG_GROUPS
@@ -94,12 +104,15 @@ from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 
 N, B, DT, K, WARMUP = 32, 512, 0.01, 50, 6
 N_LONG, B_LONG, K_LONG = 256, 64, 10
-# the iteration kernels' variants, (layout, G): the earlier global-scratch
-# layout and the shared layout at 1, 2, 4 threads per knot; timed at N=32
+# the iteration kernels' variants, (layout, G, phase A): the earlier
+# global-scratch layout and the shared layout at 1, 2, 4 threads per knot
+# with the one-thread phase A, and at 4 with the staged one; timed at N=32
 # and N_WIDE (B=512), and held against their plain versions at
 # CHECK_HORIZONS (B=512) in the variant that each N takes: the shared
 # layout's last N, the global layout
-VARIANTS = (("global", 1), ("shared", 1), ("shared", 2), ("shared", 4))
+VARIANTS = (("global", 1, "one"), ("shared", 1, "one"), ("shared", 2, "one"),
+            ("shared", 4, "one"), ("shared", 4, "staged"))
+KKT_DEFAULT = ("staged", KKT_GROUPS)
 N_WIDE, CHECK_HORIZONS = 64, (64, 128)
 # where the pcg kernel's shared variant meets the 2-CTA cluster (B=512)
 PCG_EDGE_HORIZONS = (64, 80, 95)
@@ -167,6 +180,37 @@ def event_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps):
+    """Device ms per call of fn: reps calls captured in one CUDA graph,
+    replayed three times between CUDA events, so the host's time to enqueue
+    a call (about 0.1 ms of Python and ctypes a wrapper call) does not
+    count. The wrappers allocate their outputs, which the capture takes
+    from the graph's own pool."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (3 * reps)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
 def reset_launches():
     for w in WRAPPERS.values():
         w.launches = 0
@@ -202,23 +246,54 @@ def generated_op_counts():
     return counts
 
 
-def variant_name(n):
+def taken_variant(n):
+    """(layout, G, phase A) of the iteration kernels at horizon n."""
     layout, g = iteration_variant(n)
-    return f"{layout} layout, G={g}"
+    return layout, g, phase_a_default(layout, g)
 
 
-def ptxas_variants(name):
-    """{(layout, G): ptxas' register and spill lines} of the iteration
-    kernel variants compiled in csrc/<name>.cu."""
+def variant_name(n):
+    layout, g, phase_a = taken_variant(n)
+    return f"{layout} layout, G={g}, phase A {phase_a}"
+
+
+def ptxas_lines(name, pattern, key_of):
+    """{key_of(match): ptxas' register and spill lines} of the kernels of
+    csrc/<name>.cu whose mangled name matches `pattern`."""
     out, key = {}, None
     for line in _build.ptxas_report(name).splitlines():
-        m = re.search(r"iteration_kernelILb[01]ELNS_6BlocksE(\d)ELi(\d)E", line)
+        m = re.search(pattern, line)
         if m:
-            key = (("global", "shared")[int(m.group(1))], int(m.group(2)))
+            key = key_of(m)
             out[key] = []
+        elif "Compiling entry" in line:
+            key = None
         elif key is not None:
             out[key].append(line.strip())
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def ptxas_variants(name):
+    """{(layout, G, phase A): ptxas' register and spill lines} of the
+    iteration kernel variants compiled in csrc/<name>.cu."""
+    return ptxas_lines(
+        name, r"iteration_kernelILb[01]ELNS_6BlocksE(\d)ELi(\d)ELb([01])E",
+        lambda m: (("global", "shared")[int(m.group(1))], int(m.group(2)),
+                   ("one", "staged")[int(m.group(3))]))
+
+
+def ptxas_kkt():
+    """{kkt variant: ptxas' register and spill lines}."""
+    return ptxas_lines("kkt", r"kkt_(one_kernel|staged_kernelILi(\d)E)",
+                       lambda m: ("staged", int(m.group(2))) if m.group(2) else ("one", 1))
+
+
+def spill_bytes(ptxas):
+    """The spill stores that a ptxas line reports, in bytes."""
+    m = re.search(r"(\d+) bytes spill stores", ptxas)
+    if m is None:
+        raise RuntimeError(f"no spill count in the ptxas line {ptxas!r}")
+    return int(m.group(1))
 
 
 def report_variants():
@@ -227,15 +302,15 @@ def report_variants():
     against its Python mirror (ops/cuda_iter.py::smem_bytes) at every N."""
     for name in ("bsqp_iter", "iter"):
         bad = [(n, v) for n in range(2, 129) for v in VARIANTS
-               if variant_resources(name, n, *v)[0] != smem_bytes(n, *v)]
+               if variant_resources(name, n, *v)[0] != smem_bytes(n, *v[:2])]
         if bad:
             raise RuntimeError(f"{name}: smem_bytes differs from the library at {bad[:4]}")
         px = ptxas_variants(name)
         for n in (N, N_WIDE):
             for v in VARIANTS:
                 nb, per_sm = variant_resources(name, n, *v)
-                taken = " (the variant N takes)" if iteration_variant(n) == v else ""
-                log(f"[variant] {name} N={n} {v[0]} layout G={v[1]}{taken}: "
+                taken = " (the variant N takes)" if taken_variant(n) == v else ""
+                log(f"[variant] {name} N={n} {v[0]} layout G={v[1]} phase A {v[2]}{taken}: "
                     f"{nb} bytes of shared memory, {per_sm} blocks per SM "
                     f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
                     f"{v[1] * 32 * ((n + 31) // 32)} threads; ptxas: {px[v]}")
@@ -244,11 +319,11 @@ def report_variants():
 
 
 def time_variants(f, state, i, card):
-    """ms per launch of bsqp_iter and iter in every variant on one
-    steady-state input, and each with max_pcg_iters=0: phases A-C, D's
-    set-up and E-G without the Krylov loop, so the loop's share is the
-    difference (the phase split by a runtime argument, no measurement
-    build). Two rounds in opposite orders, their mean."""
+    """Device ms per launch (graph_ms) of bsqp_iter and iter in every
+    variant on one steady-state input, and each with max_pcg_iters=0:
+    phases A-C, D's set-up and E-G without the Krylov loop, so the loop's
+    share is the difference (the phase split by a runtime argument, no
+    measurement build). Two rounds in opposite orders, their mean."""
     X, U, lam, x_s = state
     zero = torch.zeros(f.B, device=f.dev)
     prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
@@ -258,25 +333,25 @@ def time_variants(f, state, i, card):
     core = (X, U, x_s, f.ref(i), f.f_ext, lam, f.hp.rho, f.hp.pcg_tol, skip, DT)
 
     def calls(v):
+        kw = dict(variant=v[:2], phase_a=v[2])
         return dict(
             bsqp_iter=lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings,
-                                            seeded=False, variant=v),
+                                            seeded=False, **kw),
             bsqp_iter_no_loop=lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, no_loop,
-                                                    seeded=False, variant=v),
-            iter=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, P["max_pcg_iters"],
-                                            variant=v),
-            iter_no_loop=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, 0, variant=v))
+                                                    seeded=False, **kw),
+            iter=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, P["max_pcg_iters"], **kw),
+            iter_no_loop=lambda: sqp_iter_core_cuda(f.model, f.cp, *core, 0, **kw))
 
     rounds = {v: {} for v in VARIANTS}
     for order in (VARIANTS, VARIANTS[::-1]):
         for v in order:
             for k, fn in calls(v).items():
-                rounds[v].setdefault(k, []).append(event_ms(fn, 10))
+                rounds[v].setdefault(k, []).append(graph_ms(fn, 10))
     ms = {v: {k: statistics.mean(t) for k, t in d.items()} for v, d in rounds.items()}
     for v in VARIANTS:
         m = ms[v]
-        taken = " (the variant this N takes)" if iteration_variant(f.N) == v else ""
-        log(f"[layout] {card}: N={f.N} B={f.B} {v[0]} layout G={v[1]}{taken}: "
+        taken = " (the variant this N takes)" if taken_variant(f.N) == v else ""
+        log(f"[layout] {card}: N={f.N} B={f.B} {v[0]} layout G={v[1]} phase A {v[2]}{taken}: "
             f"bsqp_iter {m['bsqp_iter']:.4f} ms, iter {m['iter']:.4f} ms; split: "
             f"without the Krylov loop {m['bsqp_iter_no_loop']:.4f} ms (iter "
             f"{m['iter_no_loop']:.4f}), so the loop {m['bsqp_iter'] - m['bsqp_iter_no_loop']:.4f} "
@@ -679,25 +754,79 @@ def compare_core(f, state, i, noise_floor=False):
     return args, skip, ro, res
 
 
+KKT_FIELDS = ("Q", "q", "R", "r", "A", "B", "c")
+
+
 def compare_kkt(f, X, U, x_s, ref):
-    """The kkt kernel against setup_kkt_batched on the identical input."""
-    k = setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT)
+    """The kkt kernel against setup_kkt_batched on the identical input: the
+    default variant first, then every other; and the default's largest
+    difference from the one-thread variant (the same SSA expressions, so
+    only FMA contraction may differ: reported, not held)."""
     p = setup_kkt_batched(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT)
-    torch.cuda.synchronize()
-    worst, errs = 0.0, {}
-    for name in ("Q", "q", "R", "r", "A", "B", "c"):
-        a, b = getattr(k, name), getattr(p, name)
-        if not torch.isfinite(a).all():
-            raise RuntimeError(f"kkt kernel output {name} is not finite")
-        err, scale = (a - b).abs().max().item(), b.abs().max().item()
-        errs[name] = (err, KKT_RTOL * scale)
-        worst = max(worst, err)
-    log(f"[compare] kkt kernel vs setup_kkt_batched (N={f.N}, B={f.B}): max abs "
-        "err / tolerance (rtol {} of each tensor's max |value|): {}".format(
-            KKT_RTOL, ", ".join(f"{n} {e:.3e}/{t:.3e}" for n, (e, t) in errs.items())))
-    if any(e > t for e, t in errs.values()):
-        raise RuntimeError(f"kkt kernel disagrees with its plain version: {errs}")
-    return p, worst
+    outs, worst = {}, {}
+    for v in [KKT_DEFAULT] + [v for v in KKT_VARIANTS if v != KKT_DEFAULT]:
+        k = outs[v] = setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT,
+                                             variant=v)
+        torch.cuda.synchronize()
+        errs = {}
+        for name in KKT_FIELDS:
+            a, b = getattr(k, name), getattr(p, name)
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"kkt kernel ({v}) output {name} is not finite")
+            errs[name] = ((a - b).abs().max().item(), KKT_RTOL * b.abs().max().item())
+        worst[v] = max(e for e, _ in errs.values())
+        log(f"[compare] kkt kernel ({v[0]}, G={v[1]}"
+            f"{', the default' if v == KKT_DEFAULT else ''}) vs setup_kkt_batched "
+            f"(N={f.N}, B={f.B}): max abs err / tolerance (rtol {KKT_RTOL} of each "
+            "tensor's max |value|): " + ", ".join(
+                f"{n} {e:.3e}/{t:.3e}" for n, (e, t) in errs.items()))
+        if any(e > t for e, t in errs.values()):
+            raise RuntimeError(f"kkt kernel ({v}) disagrees with its plain version: {errs}")
+    new, old = outs[KKT_DEFAULT], outs[("one", 1)]
+    diff = {n: (getattr(new, n) - getattr(old, n)).abs().max().item() for n in KKT_FIELDS}
+    log(f"[compare] kkt {KKT_DEFAULT} against the one-thread variant (N={f.N}, "
+        f"B={f.B}), max abs difference (reported): "
+        + ", ".join(f"{n} {d:.3e}" for n, d in diff.items()))
+    return p, worst[KKT_DEFAULT]
+
+
+def report_kkt_variants(sms):
+    """A [variant] kkt line for each variant: registers and spills (ptxas),
+    shared bytes a CTA, threads, CTAs per SM; the default must not spill."""
+    px = ptxas_kkt()
+    for v in KKT_VARIANTS:
+        nbytes, per_sm = kkt_resources(v)
+        log(f"[variant] kkt {v[0]} G={v[1]}{' (the default)' if v == KKT_DEFAULT else ''}: "
+            f"{nbytes} bytes of shared memory a CTA, {32 * v[1] if v[0] == 'staged' else 128} "
+            f"threads a CTA, {per_sm} CTAs per SM on {sms} SMs; ptxas: {px[v]}")
+    if spill_bytes(px[KKT_DEFAULT]) != 0:
+        raise RuntimeError(f"the kkt kernel {KKT_DEFAULT} spills: {px[KKT_DEFAULT]}")
+
+
+def time_kkt(f, X, U, x_s, ref, card, reps):
+    """Device ms per launch (graph_ms) of kkt in every variant on one
+    input: two rounds in opposite orders, their mean; the fastest beside
+    the default; and each variant's ms per wrapper call back to back
+    (CUDA events), where the host's time to enqueue a call shows. Returns
+    {variant: ms}."""
+    rounds, wrapped = {v: [] for v in KKT_VARIANTS}, {}
+    for order in (KKT_VARIANTS, KKT_VARIANTS[::-1]):
+        for v in order:
+            call = lambda: setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext,
+                                                  DT, variant=v)
+            rounds[v].append(graph_ms(call, reps))
+            wrapped.setdefault(v, []).append(event_ms(call, reps))
+    ms = {v: statistics.mean(t) for v, t in rounds.items()}
+    fastest = min(ms, key=ms.get)
+    for v in KKT_VARIANTS:
+        log(f"[kkt] {card}: N={f.N} B={f.B} {v[0]} G={v[1]}"
+            f"{' (the default)' if v == KKT_DEFAULT else ''}: {ms[v]:.4f} ms per launch "
+            f"on the device; rounds {[round(t, 4) for t in rounds[v]]}; per wrapper call "
+            f"{statistics.mean(wrapped[v]):.4f} ms")
+    log(f"[kkt] N={f.N} B={f.B}: fastest {fastest} {ms[fastest]:.4f} ms; the default "
+        f"{KKT_DEFAULT} {ms[KKT_DEFAULT]:.4f} ms, the one-thread kernel "
+        f"{ms[('one', 1)]:.4f} ms ({ms[('one', 1)] / ms[KKT_DEFAULT]:.2f}x)")
+    return ms
 
 
 def lane_rel(a, b):
@@ -719,19 +848,10 @@ def pcg_variants(n):
 def ptxas_pcg():
     """{(layout, G or the global kernel's thread bound): ptxas' register
     and spill lines} of the pcg kernel's compiled variants."""
-    out, key = {}, None
-    for line in _build.ptxas_report("pcg").splitlines():
-        m = re.search(r"pcg_smem_kernelILi(\d+)ELb([01])E", line)
-        g = re.search(r"pcg_kernelILi(\d+)E", line)
-        if m:
-            key = (("shared", "cluster")[int(m.group(2))], int(m.group(1)))
-            out[key] = []
-        elif g:
-            key = ("global", int(g.group(1)))
-            out[key] = []
-        elif key is not None:
-            out[key].append(line.strip())
-    return {k: "; ".join(v) for k, v in out.items()}
+    return ptxas_lines(
+        "pcg", r"pcg_smem_kernelILi(\d+)ELb([01])E|pcg_kernelILi(\d+)E",
+        lambda m: ((("shared", "cluster")[int(m.group(2))], int(m.group(1))) if m.group(1)
+                   else ("global", int(m.group(3)))))
 
 
 def report_pcg_variants(n, b, sms):
@@ -775,8 +895,11 @@ def compare_pcg(f, kkt, lam0):
     same limits.
 
     Where float32 rounding alone moves lam by more than LAM_RTOL (the
-    float32 plain version's own distance from the float64 one: about 1e-2
-    at N=256), the limit on the kernel is that noise floor. The float64
+    float32 plain version's own distance from the float64 one: up to 1e-2
+    at N=256), the limit on the kernel is twice that noise floor: two
+    float32 results that far from float64 may lie twice as far apart
+    (noise_limits' rule; the lane farthest from the plain version prints
+    with its count and both lane-normalised distances). The float64
     rule of compare_iteration (the kernel at most F64_FACTOR times as far
     off as the float32 plain version) is applied lane by lane against the
     plain version's largest distance over the batch, and must hold on
@@ -799,12 +922,16 @@ def compare_pcg(f, kkt, lam0):
             raise RuntimeError(f"pcg kernel output is not finite ({v})")
         same = ik == ip
         k_rel, k_cnt = lane_rel(lk, l64), (ik - i64).abs()
+        kp_rel = lane_rel(lk, lp)
+        worst = int(kp_rel.argmax())
         f64_ok = ((k_rel <= max(LAM_RTOL, F64_FACTOR * p_rel.max().item()))
                   & (k_cnt <= max(PCG_SLACK, F64_FACTOR * p_cnt.max().item())))
         res = dict(same_frac=same.double().mean().item(),
+                   worst_lane=(worst, int(ik[worst]), kp_rel[worst].item(),
+                               p_rel[worst].item()),
                    max_diff=int((ik - ip).abs().max()),
                    lam_rel=normwise(lk[same], lp[same]),
-                   lam_limit=max(LAM_RTOL, normwise(lp[same], l64[same])),
+                   lam_limit=max(LAM_RTOL, 2 * normwise(lp[same], l64[same])),
                    lam_max_abs_err=(lk[same] - lp[same]).abs().max().item(),
                    f64_rule_frac=f64_ok.double().mean().item(),
                    kernel_f64_lam_rel_max=k_rel.max().item(),
@@ -820,8 +947,10 @@ def compare_pcg(f, kkt, lam0):
             f"assembled system): identical counts on {res['same_frac']:.4f} of lanes "
             f"(tolerance >= {PCG_SAME_MIN}), largest difference {res['max_diff']}; "
             f"lam normwise rel where counts agree {res['lam_rel']:.3e} (tolerance "
-            f"{res['lam_limit']:.3e}: {LAM_RTOL}, or plain32's own distance from "
-            f"float64 where larger); against the float64 plain version, lane by "
+            f"{res['lam_limit']:.3e}: {LAM_RTOL}, or twice plain32's own distance from "
+            f"float64 where larger); the lane farthest from plain32, lane-normalised "
+            f"(lane, count, kernel to plain32, plain32 to float64): {res['worst_lane']}; "
+            f"against the float64 plain version, lane by "
             f"lane (the kernel within {F64_FACTOR}x of plain32's largest distance, "
             f"floors {LAM_RTOL} and {PCG_SLACK}): holds on "
             f"{res['f64_rule_frac']:.4f} of lanes (tolerance "
@@ -980,6 +1109,7 @@ def main():
     check_pcg_smem_mirror()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     report_pcg_variants(N, B, sms)
+    report_kkt_variants(sms)
 
     f = Fig8(dev)
     state, i0 = f.steady_state()
@@ -1018,30 +1148,35 @@ def main():
                lambda: merit_alphas_batched(f.model, f.cp, *merit_args)),
     )
     kernel_reps = dict(bsqp_iter=20, rk4=200, iter=20, kkt=20, pcg=20, merit=50)
-    times = {name: (event_ms(kf, kernel_reps[name]), event_ms(pf, 3))
+    times = {name: (graph_ms(kf, kernel_reps[name]), event_ms(pf, 3))
              for name, (kf, pf) in t.items()}
+    wrapped = {name: event_ms(kf, kernel_reps[name]) for name, (kf, _) in t.items()}
     S_dense = dense_btd(pcg_sys[0], pcg_sys[1])
     g_flat = pcg_sys[4].reshape(B, -1, 1)
     pcg_library_ms = event_ms(lambda: torch.linalg.solve(S_dense, g_flat), 3)
     del S_dense
-    log(f"[timing] {card}: ms per call, kernel / plain version (N={N}, B={B}; "
-        f"rk4 at B=1): "
-        + ", ".join(f"{n} {k:.4f} / {p:.3f}" for n, (k, p) in times.items())
+    log(f"[timing] {card}: ms per call, kernel on the device (graph_ms) / per "
+        f"wrapper call (CUDA events) / plain version (N={N}, B={B}; rk4 at B=1): "
+        + ", ".join(f"{n} {k:.4f} / {wrapped[n]:.4f} / {p:.3f}" for n, (k, p) in times.items())
         + f"; pcg library yardstick torch.linalg.solve on the dense "
         f"({N * 12})^2 Schur matrix {pcg_library_ms:.3f} ms")
 
     # ---- the iteration kernels' layouts side by side, N=32 and N_WIDE ----
     same_bits_as_global(f, state, i0 - 1)
     lay = time_variants(f, state, i0 - 1, card)
-    taken = lay[iteration_variant(N)]
+    taken, one = lay[taken_variant(N)], lay[("shared", 4, "one")]
     log(f"[layout] N={N} B={B}: in the variant N takes ({variant_name(N)}) bsqp_iter "
-        f"{taken['bsqp_iter']:.4f} ms against the global layout "
-        f"{lay[('global', 1)]['bsqp_iter']:.4f} ms in this run; iter "
-        f"{taken['iter']:.4f} against {lay[('global', 1)]['iter']:.4f} ms")
+        f"{taken['bsqp_iter']:.4f} ms against {one['bsqp_iter']:.4f} with the one-thread "
+        f"phase A and {lay[('global', 1, 'one')]['bsqp_iter']:.4f} in the global layout in "
+        f"this run; iter {taken['iter']:.4f} against {one['iter']:.4f} and "
+        f"{lay[('global', 1, 'one')]['iter']:.4f} ms")
     fw = Fig8(dev, N_WIDE, B)
     state_w, i0_w = fw.steady_state()
     time_variants(fw, state_w, i0_w - 1, card)
     del fw, state_w
+
+    # ---- kkt in every variant, N=32 B=512 ----
+    time_kkt(f, X, U, x_s, ref, card, 20)
 
     # ---- pcg in every variant: N=32 B=512, and where shared meets cluster ----
     time_pcg(N, B, pcg_sys, pcg_skip, card, 10)
@@ -1103,6 +1238,7 @@ def main():
     Xl, Ul, laml, xsl = state_l
     refl = fl.ref(i0_l - 1)
     kkt_pl, kkt_err_l = compare_kkt(fl, Xl, Ul, xsl, refl)
+    time_kkt(fl, Xl, Ul, xsl, refl, card, 10)
     report_pcg_variants(N_LONG, B_LONG, sms)
     pcg_sys_l, pcg_skip_l, pcg_res_l = compare_pcg(fl, kkt_pl, laml)
     time_pcg(N_LONG, B_LONG, pcg_sys_l, pcg_skip_l, card, 5)

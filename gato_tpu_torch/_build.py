@@ -8,7 +8,7 @@ seconds to minutes, not the many minutes of a torch extension):
          -Xcompiler -fPIC -Xptxas -v --split-compile=0
 
 (--split-compile=0 optimizes the kernels of one file in parallel on every
-CPU: the iteration kernels' files hold four variants each.)
+CPU: the iteration kernels' files hold five variants each, kkt.cu three.)
 
 The libraries go to `build/gato_tpu_torch/` beside the package, named by a
 hash of every file under csrc/ and of the flags, so an edit rebuilds and an

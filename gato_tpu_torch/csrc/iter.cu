@@ -28,10 +28,11 @@ extern "C" long long gato_iter_smem_bytes(int N, int layout, int G) {
   return (long long)gato::iter_detail::smem_bytes(N, static_cast<gato::Blocks>(layout), G);
 }
 
-extern "C" int gato_iter_blocks_per_sm(int N, int layout, int G) {
-  return gato::blocks_per_sm<false>(N, layout, G);
+extern "C" int gato_iter_blocks_per_sm(int N, int layout, int G, int staged) {
+  return gato::blocks_per_sm<false>(N, layout, G, staged);
 }
 
-extern "C" int gato_iter_indy7(const gato::IterArgs* args, int layout, int G, void* stream) {
-  return gato::launch_iteration<false>(args, layout, G, stream);
+extern "C" int gato_iter_indy7(const gato::IterArgs* args, int layout, int G,
+                                int staged, void* stream) {
+  return gato::launch_iteration<false>(args, layout, G, staged, stream);
 }

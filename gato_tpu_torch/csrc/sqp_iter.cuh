@@ -5,10 +5,21 @@
 //   A  KKT: thread k calls the generated knot_kkt (dynamics linearization by
 //      sparse duals, defect, cost gradient/Hessian; the tracking weight is
 //      N_cost on the last knot) and inverts its Q~ blocks (Cholesky of the
-//      6x6 qq block + rho I, reciprocal of the diagonal qd block and of R);
+//      6x6 qq block + rho I, reciprocal of the diagonal qd block and of R).
+//      With kStaged (the shared layout at G = 4) the G threads of knot k
+//      compute the KKT blocks in the stages of csrc/kkt_stages.cuh instead
+//      (qdd and Minv staged in the PCG vectors' shared memory, idle until
+//      phase D), thread k of group 0 inverts the Q~ blocks, and group g
+//      computes rows [3g, 3g + 3) of phi_k;
 //   B  Schur: theta_k, gamma_{k+1}, S_main_{k+1} = -theta_k and the SS
-//      preconditioner block -(theta_k + rho I~)^-1 (12x12 Cholesky);
-//   C  P_lower_k = -(P_main_{k+1} phi_k P_main_k);
+//      preconditioner block -(theta_k + rho I~)^-1 (12x12 Cholesky); with
+//      kStaged group g computes rows g, 7 - g, 8 + g of theta (from the
+//      diagonal on, both triangles stored) and gamma, then, after a
+//      barrier, factors theta + rho I~ itself and solves columns [3g, 3g +
+//      3) of the inverse;
+//   C  P_lower_k = -(P_main_{k+1} phi_k P_main_k); with kStaged, rows
+//      [3g, 3g + 3) on group g. Every entry is computed in the one-thread
+//      order, so the split changes no value;
 //   D  block PCG on the block-tridiagonal Schur system (below);
 //   E  dz recovery; with kLineSearch the per-problem step_ok scrub of
 //      non-finite steps, without it dz, lam and the PCG count are written
@@ -22,8 +33,9 @@
 //
 // The block is G groups of W = 32 ceil(N / 32) threads: thread t handles
 // knot k = t mod W in group g = t / W. Phases A-C and E-G run on group 0
-// alone (its first ceil(N / 32) warps), one thread per knot; the other
-// groups join only phase D and the barriers.
+// alone (its first ceil(N / 32) warps), one thread per knot, except where
+// kStaged spreads them as above; the other groups join phase D and the
+// barriers.
 //
 // Phase D comes in two layouts (the template parameter kBlocks):
 //   kShared  phases A-C write the problem's four 12x12 blocks per knot
@@ -56,6 +68,7 @@
 
 #include "block_ops.cuh"
 #include "generated/indy7.cuh"
+#include "kkt_stages.cuh"
 #include "krylov.cuh"
 
 namespace gato {
@@ -172,9 +185,10 @@ struct Knot {
 };
 
 // Cholesky inverse of an SPD n x n matrix M (row-major, read through get),
-// in the order of gato_tpu's ch_chol_factor_n / ch_chol_solve_n.
+// in the order of gato_tpu's ch_chol_factor_n / ch_chol_solve_n: columns
+// [c0, c1) of it, each solved in the same order whatever the range.
 template <int n, typename Get, typename Put>
-__device__ void chol_inv(Get get, Put put) {
+__device__ void chol_inv(Get get, Put put, int c0 = 0, int c1 = n) {
   float L[n][n];
   float inv_d[n];
   for (int j = 0; j < n; ++j) {
@@ -189,7 +203,7 @@ __device__ void chol_inv(Get get, Put put) {
       L[i][j] = (get(i, j) - t) * inv_d[j];
     }
   }
-  for (int c = 0; c < n; ++c) {
+  for (int c = c0; c < c1; ++c) {
     float y[n], x[n];
     for (int i = 0; i < n; ++i) {
       float s = (i == c) ? 1.0f : 0.0f;
@@ -230,6 +244,39 @@ __device__ inline void btd_matvec(const Knot& K, const Knot& Kp, int k, int N,
   }
 }
 
+// row r of phi_k = A_k Q~_k^-1 (right factor block-diagonal)
+__device__ inline void phi_row(const Knot& K, const Knot& Kb, int r) {
+  for (int c = 0; c < NQ; ++c) {
+    float s = 0.0f;
+    for (int j = 0; j < NQ; ++j) s += K[E_A + r * NX + j] * K[E_IQQ + j * NQ + c];
+    Kb[SB_PHI + r * NX + c] = s;
+  }
+  for (int c = NQ; c < NX; ++c) Kb[SB_PHI + r * NX + c] = K[E_A + r * NX + c] * K[E_IDQ + c - NQ];
+}
+
+// theta_k entry (r, s) = phi_k A_k^T + B_k R_k^-1 B_k^T + Q~_{k+1}^-1
+__device__ inline float theta_entry(const Knot& K, const Knot& Kn, const Knot& Kb, int r,
+                                    int s) {
+  float t = 0.0f;
+  for (int c = 0; c < NX; ++c) t += Kb[SB_PHI + r * NX + c] * K[E_A + s * NX + c];
+  float u = 0.0f;
+  for (int c = 0; c < NU; ++c) u += K[E_B + r * NU + c] * K[E_RI + c] * K[E_B + s * NU + c];
+  t = t + u;
+  return t + qinv(Kn, r, s);
+}
+
+// gamma_{k+1} row r = c_k - Q~_{k+1}^-1 q_{k+1} + phi_k q_k + B R^-1 r_k
+__device__ inline float gamma_row(const Knot& K, const Knot& Kn, const Knot& Kb, int r) {
+  float qq = 0.0f;
+  for (int c = 0; c < NX; ++c)
+    if (r < NQ ? c < NQ : c == r) qq += qinv(Kn, r, c) * Kn[E_QV + c];
+  float t1 = 0.0f;
+  for (int c = 0; c < NX; ++c) t1 += Kb[SB_PHI + r * NX + c] * K[E_QV + c];
+  float t2 = 0.0f;
+  for (int c = 0; c < NU; ++c) t2 += K[E_B + r * NU + c] * K[E_RI + c] * K[E_RV + c];
+  return (K[E_C + r] - qq) + (t1 + t2);
+}
+
 __device__ inline float knot_dot(const float* a, const float* b, int k) {
   float s = 0.0f;
   for (int i = 0; i < NX; ++i) s += a[k * NX + i] * b[k * NX + i];
@@ -238,11 +285,14 @@ __device__ inline float knot_dot(const float* a, const float* b, int k) {
 
 }  // namespace iter_detail
 
-template <bool kLineSearch, Blocks kBlocks, int G>
+template <bool kLineSearch, Blocks kBlocks, int G, bool kStaged>
 __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   using namespace iter_detail;
   static_assert(kBlocks == Blocks::kShared || G == 1,
                 "the global layout runs one thread per knot");
+  static_assert(!kStaged || (kBlocks == Blocks::kShared && G == 4),
+                "the staged KKT takes the shared layout's G = 4 groups");
+  static_assert(!kStaged || NX == 12, "the staged phases split 12 rows in 4");
   static_assert(NX % G == 0, "a group takes NX / G rows");
   extern __shared__ float smem[];
   const int N = a.N;
@@ -283,7 +333,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   const float* fe = a.fe + b * 6;
   const float* xs = a.xs + b * NX;
   float r3[3] = {0.0f, 0.0f, 0.0f};
-  if (on)
+  if (kStaged ? k < N : on)
     for (int i = 0; i < 3; ++i) r3[i] = a.ref[((size_t)b * N + k) * a.ref_stride + i];
   const float w_track = (k == N - 1) ? a.w[3] : a.w[0];
 
@@ -296,28 +346,44 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   __syncthreads();
 
   // ---- A: KKT blocks and Q~^-1, R^-1 of knot k ----
-  if (on) {
-    float xn[NX];
-    for (int i = 0; i < NX; ++i) xn[i] = notlast ? sX[(k + 1) * NX + i] : 0.0f;
+  if constexpr (kStaged) {
+    // qdd and Minv of knot k in the PCG vectors (sR on), idle until phase D
+    static_assert(kkt_stages::DYN_FLOATS <= 4 * NX, "qdd and Minv fit r, p, z, Ap");
+    float* dyn = sR + k * kkt_stages::DYN_FLOATS;
     const float* x = sX + k * NX;
-    robot::knot_kkt<float, Knot>(x, x + NQ, sU + k * NU, xn, r3, fe, a.dt,
-                                 w_track, a.w, K.at(E_A), K.at(E_B), K.at(E_C),
-                                 K.at(E_Q), K.at(E_QV), K.at(E_RD), K.at(E_RV));
+    const float* u = sU + k * NU;
+    if (k < N && g == 0) {
+      robot::knot_dyn<float, float*>(x, x + NQ, u, fe, dyn, dyn + NQ);
+    } else if (k < N && g == 1) {
+      robot::knot_cost<float, Knot>(x, x + NQ, u, r3, w_track, a.w, K.at(E_Q), K.at(E_QV),
+                                    K.at(E_RD), K.at(E_RV));
+    }
+    __syncthreads();
+    if (k < N) {
+      kkt_stages::tangent_part<G, Knot>(g, x, x + NQ, dyn, fe, a.dt, K.at(E_A), K.at(E_B));
+      // the last knot's defect is never read: its own x stands in for x_next
+      if (g == G - 1)
+        robot::knot_defect<float, Knot>(x, x + NQ, sX + (k < N - 1 ? k + 1 : k) * NX, dyn,
+                                        a.dt, K.at(E_C));
+    }
+    __syncthreads();
+  }
+  if (on) {
+    if constexpr (!kStaged) {
+      float xn[NX];
+      for (int i = 0; i < NX; ++i) xn[i] = notlast ? sX[(k + 1) * NX + i] : 0.0f;
+      const float* x = sX + k * NX;
+      robot::knot_kkt<float, Knot>(x, x + NQ, sU + k * NU, xn, r3, fe, a.dt,
+                                   w_track, a.w, K.at(E_A), K.at(E_B), K.at(E_C),
+                                   K.at(E_Q), K.at(E_QV), K.at(E_RD), K.at(E_RV));
+    }
     chol_inv<NQ>(
         [&](int r, int c) { return K[E_Q + r * NX + c] + (r == c ? rho : 0.0f); },
         [&](int r, int c, float v) { K[E_IQQ + r * NQ + c] = v; });
     for (int i = 0; i < NQ; ++i) K[E_IDQ + i] = 1.0f / K[E_Q + (NQ + i) * NX + NQ + i];
     for (int i = 0; i < NU; ++i) K[E_RI + i] = 1.0f / K[E_RD + i];
-    // phi_k = A_k Q~_k^-1 (right factor block-diagonal)
-    for (int r = 0; r < NX; ++r) {
-      for (int c = 0; c < NQ; ++c) {
-        float s = 0.0f;
-        for (int j = 0; j < NQ; ++j) s += K[E_A + r * NX + j] * K[E_IQQ + j * NQ + c];
-        Kb[SB_PHI + r * NX + c] = s;
-      }
-      for (int c = NQ; c < NX; ++c)
-        Kb[SB_PHI + r * NX + c] = K[E_A + r * NX + c] * K[E_IDQ + c - NQ];
-    }
+    if constexpr (!kStaged)
+      for (int r = 0; r < NX; ++r) phi_row(K, Kb, r);
     if (k == 0) {
       // S_main_0 = -Q~_0^-1; P_main_0 = -Q~_0 (not its inverse: reference
       // quirk); gamma_0 = c_0 - Q~_0^-1 q_0 with c_0 = x_0 - x_s
@@ -333,34 +399,43 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
       }
     }
   }
+  // kStaged: rows [3g, 3g + 3) of phi, of P_lower and of P_main's
+  // columns on group g
+  const int r0 = 3 * g;
+  if constexpr (kStaged) {
+    __syncthreads();
+    if (k < N)
+      for (int r = r0; r < r0 + 3; ++r) phi_row(K, Kb, r);
+  }
   __syncthreads();
 
   // ---- B: theta_k -> S_main_{k+1}, gamma_{k+1}, P_main_{k+1} ----
-  if (notlast) {
-    float theta[NX][NX];
-    for (int r = 0; r < NX; ++r) {
-      for (int s = r; s < NX; ++s) {
-        float t = 0.0f;
-        for (int c = 0; c < NX; ++c) t += Kb[SB_PHI + r * NX + c] * K[E_A + s * NX + c];
-        float u = 0.0f;
-        for (int c = 0; c < NU; ++c)
-          u += K[E_B + r * NU + c] * K[E_RI + c] * K[E_B + s * NU + c];
-        t = t + u;
-        t = t + qinv(Kn, r, s);
-        theta[r][s] = theta[s][r] = t;
+  if constexpr (kStaged) {
+    // rows g, 7 - g, 8 + g: 21, 20, 19, 18 entries of theta's upper triangle
+    if (k < N - 1)
+      for (int i = 0; i < 3; ++i) {
+        const int r = i == 0 ? g : (i == 1 ? 7 - g : 8 + g);
+        for (int s = r; s < NX; ++s) {
+          const float t = theta_entry(K, Kn, Kb, r, s);
+          Kbn[SB_SM + r * NX + s] = -t;
+          Kbn[SB_SM + s * NX + r] = -t;
+        }
+        Kn[E_G + r] = gamma_row(K, Kn, Kb, r);
       }
-    }
+    __syncthreads();
+    if (k < N - 1)
+      chol_inv<NX>(
+          [&](int r, int c) {
+            return -Kbn[SB_SM + r * NX + c] + ((r == c && r < NQ) ? rho : 0.0f);
+          },
+          [&](int r, int c, float v) { Kbn[SB_PM + r * NX + c] = -v; }, r0, r0 + 3);
+  } else if (notlast) {
+    float theta[NX][NX];
+    for (int r = 0; r < NX; ++r)
+      for (int s = r; s < NX; ++s) theta[r][s] = theta[s][r] = theta_entry(K, Kn, Kb, r, s);
     for (int r = 0; r < NX; ++r) {
       for (int s = 0; s < NX; ++s) Kbn[SB_SM + r * NX + s] = -theta[r][s];
-      // gamma_{k+1} = c_k - Q~_{k+1}^-1 q_{k+1} + phi_k q_k + B R^-1 r_k
-      float qq = 0.0f;
-      for (int c = 0; c < NX; ++c)
-        if (r < NQ ? c < NQ : c == r) qq += qinv(Kn, r, c) * Kn[E_QV + c];
-      float t1 = 0.0f;
-      for (int c = 0; c < NX; ++c) t1 += Kb[SB_PHI + r * NX + c] * K[E_QV + c];
-      float t2 = 0.0f;
-      for (int c = 0; c < NU; ++c) t2 += K[E_B + r * NU + c] * K[E_RI + c] * K[E_RV + c];
-      Kn[E_G + r] = (K[E_C + r] - qq) + (t1 + t2);
+      Kn[E_G + r] = gamma_row(K, Kn, Kb, r);
     }
     chol_inv<NX>(
         [&](int r, int c) { return theta[r][c] + ((r == c && r < NQ) ? rho : 0.0f); },
@@ -369,8 +444,8 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   __syncthreads();
 
   // ---- C: P_lower_k = -(P_main_{k+1} phi_k P_main_k) ----
-  if (notlast) {
-    for (int r = 0; r < NX; ++r) {
+  if (kStaged ? k < N - 1 : notlast) {
+    for (int r = kStaged ? r0 : 0; r < (kStaged ? r0 + 3 : NX); ++r) {
       float T[NX];
       for (int c = 0; c < NX; ++c) {
         float s = 0.0f;
@@ -646,25 +721,31 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
 }
 
 // The kernel of one variant: one block per problem, G W threads.
-template <bool kLineSearch, Blocks kBlocks, int G>
+template <bool kLineSearch, Blocks kBlocks, int G, bool kStaged>
 __global__ void __launch_bounds__(G == 1 ? 128 : iter_detail::MAX_THREADS)
 iteration_kernel(const IterArgs a) {
-  sqp_iteration<kLineSearch, kBlocks, G>(a);
+  sqp_iteration<kLineSearch, kBlocks, G, kStaged>(a);
 }
 
 using IterationKernel = void (*)(IterArgs);
 
-// The compiled variants: (global, 1) and (shared, 1 | 2 | 4); null for any
-// other (layout, G).
+// The compiled variants: (global, 1) and (shared, 1 | 2 | 4) with the
+// one-thread phase A, (shared, 4) with the staged one; null for any other
+// (layout, G, staged).
 template <bool kLineSearch>
-inline IterationKernel iteration_variant(int layout, int G) {
+inline IterationKernel iteration_variant(int layout, int G, int staged) {
+  if (staged) {
+    return layout == (int)Blocks::kShared && G == 4
+               ? iteration_kernel<kLineSearch, Blocks::kShared, 4, true>
+               : nullptr;
+  }
   if (layout == (int)Blocks::kGlobal && G == 1)
-    return iteration_kernel<kLineSearch, Blocks::kGlobal, 1>;
+    return iteration_kernel<kLineSearch, Blocks::kGlobal, 1, false>;
   if (layout != (int)Blocks::kShared) return nullptr;
   switch (G) {
-    case 1: return iteration_kernel<kLineSearch, Blocks::kShared, 1>;
-    case 2: return iteration_kernel<kLineSearch, Blocks::kShared, 2>;
-    case 4: return iteration_kernel<kLineSearch, Blocks::kShared, 4>;
+    case 1: return iteration_kernel<kLineSearch, Blocks::kShared, 1, false>;
+    case 2: return iteration_kernel<kLineSearch, Blocks::kShared, 2, false>;
+    case 4: return iteration_kernel<kLineSearch, Blocks::kShared, 4, false>;
     default: return nullptr;
   }
 }
@@ -672,9 +753,9 @@ inline IterationKernel iteration_variant(int layout, int G) {
 // Set a variant's dynamic shared memory for horizon N; its threads and bytes
 // go to *threads, *smem. Returns a CUDA error code.
 template <bool kLineSearch>
-inline int prepare_variant(int N, int layout, int G, IterationKernel* kernel,
+inline int prepare_variant(int N, int layout, int G, int staged, IterationKernel* kernel,
                            int* threads, size_t* smem) {
-  *kernel = iteration_variant<kLineSearch>(layout, G);
+  *kernel = iteration_variant<kLineSearch>(layout, G, staged);
   if (*kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   *threads = iter_detail::warp_threads(N) * G;
   *smem = iter_detail::smem_bytes(N, static_cast<Blocks>(layout), G);
@@ -686,11 +767,13 @@ inline int prepare_variant(int N, int layout, int G, IterationKernel* kernel,
 // and dynamic shared memory. A launch that the card refuses (too much
 // shared memory, too many threads) returns its error; nothing falls back.
 template <bool kLineSearch>
-inline int launch_iteration(const IterArgs* args, int layout, int G, void* stream) {
+inline int launch_iteration(const IterArgs* args, int layout, int G, int staged,
+                            void* stream) {
   IterationKernel kernel;
   int threads;
   size_t smem;
-  const int err = prepare_variant<kLineSearch>(args->N, layout, G, &kernel, &threads, &smem);
+  const int err =
+      prepare_variant<kLineSearch>(args->N, layout, G, staged, &kernel, &threads, &smem);
   if (err != 0) return err;
   kernel<<<args->B, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
@@ -699,11 +782,12 @@ inline int launch_iteration(const IterArgs* args, int layout, int G, void* strea
 // Resident blocks per SM of a variant at horizon N
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
 template <bool kLineSearch>
-inline int blocks_per_sm(int N, int layout, int G) {
+inline int blocks_per_sm(int N, int layout, int G, int staged) {
   IterationKernel kernel;
   int threads, n = 0;
   size_t smem;
-  if (prepare_variant<kLineSearch>(N, layout, G, &kernel, &threads, &smem) != 0) return -1;
+  if (prepare_variant<kLineSearch>(N, layout, G, staged, &kernel, &threads, &smem) != 0)
+    return -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
     return -1;
   return n;

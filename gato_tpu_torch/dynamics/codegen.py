@@ -15,6 +15,21 @@ dropped. The result is a header of straight-line
   knot_merit(q, qd, u, xn, r3, fe, dt, w_track, w) (merit_fast._knot_parts)
       -> cost, ucost, defect
 
+and knot_kkt once more in stages, for kernels that share a knot among
+threads (csrc/kkt.cu, phase A of csrc/sqp_iter.cuh):
+
+  knot_dyn(q, qd, u, fe) -> qdd, Minv             (fd_primal_channels)
+  knot_cost(q, qd, u, r3, w_track, w) -> Q, qv, R_diag, rv   (cost_channels)
+  knot_dual<G, P>(q, qd, qdd, fe) -> dID columns of part P   (dual_id_columns)
+  knot_ab<G, P>(Minv, dID, dt) -> A columns of part P, B columns c = P mod G
+  knot_defect(q, qd, xn, qdd, dt) -> c                       (defect_channels)
+
+The dual RNEA's 2 NQ tangent directions are split into G parts (G in
+KKT_SPLITS), balanced by each part's rendered lines (greedy, largest
+direction first); the split is written into the header as constexpr tables
+(KKT_DIRS_G<G>, KKT_LINES_G<G>). Composed, the stages compute knot_kkt's
+outputs with knot_kkt's own expressions.
+
 The cost weights `w` (CostParams order), dt and the tracking weight are
 runtime arguments; only the robot constants and limits are folded.
 `GATO_HD` is `__host__ __device__` under nvcc and empty otherwise, so the
@@ -30,7 +45,9 @@ import os
 import torch
 
 from ..ops.cost import CostParams
-from ..ops.kkt_fast import kkt_knot_channels_structured
+from ..ops.kkt_fast import (ab_channels, cost_channels, defect_channels,
+                             dqdd_channels, dual_id_columns,
+                             fd_primal_channels, kkt_knot_channels_structured)
 from ..ops.merit_fast import _get_cd, _knot_parts
 from ..robots.model import load_robot
 from . import mathshim as ms
@@ -40,6 +57,9 @@ GENERATED_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 # robots whose header is generated and committed
 ROBOTS = ("indy7",)
+# the part counts G of the staged KKT's split of the tangent directions:
+# csrc/kkt.cu's G = 2 (its fastest) and 4, and sqp_iter.cuh's 4 groups
+KKT_SPLITS = (2, 4)
 
 _FUNCS = {"sqrt": "gsqrt", "sin": "gsin", "cos": "gcos", "log": "glog",
           "abs": "gabs", "max": "gmax"}
@@ -122,16 +142,18 @@ class Emitter:
         deps = tuple(x.name for x in (a, b) if isinstance(x, Sym))
         return self.emit(f"{term(a)} {op} {term(b)}", deps)
 
-    def render(self, outputs):
-        """Body lines needed by `outputs` [(target, channel)], then the
-        output stores (a structural zero stores 0)."""
-        need = set()
-        for _, ch in outputs:
-            if isinstance(ch, Sym):
-                need.add(ch.name)
+    def live(self, channels):
+        """Names of the lines that `channels` need."""
+        need = {ch.name for ch in channels if isinstance(ch, Sym)}
         for name, _, deps in reversed(self.lines):
             if name in need:
                 need.update(deps)
+        return {name for name, _, _ in self.lines if name in need}
+
+    def render(self, outputs):
+        """Body lines needed by `outputs` [(target, channel)], then the
+        output stores (a structural zero stores 0)."""
+        need = self.live([ch for _, ch in outputs])
         body = [f"  const T {name} = {expr};"
                 for name, expr, _ in self.lines if name in need]
         for target, ch in outputs:
@@ -203,6 +225,108 @@ def _gen_knot_merit(cd, key, nq):
                            ("out[2]", defect)])
 
 
+def _gen_knot_dyn(cd, nq):
+    em = Emitter()
+    q, qd, u, fe = (_inputs(em, "q", nq), _inputs(em, "qd", nq),
+                    _inputs(em, "u", nq), _inputs(em, "fe", 6))
+    qdd, Minv = fd_primal_channels(cd, [ms.cos(x) for x in q],
+                                   [ms.sin(x) for x in q], qd, u, fe)
+    sig = "knot_dyn(const T* q, const T* qd, const T* u, const T* fe, O qdd, O Minv)"
+    return sig, em.render([(f"qdd[{i}]", qdd[i]) for i in range(nq)]
+                          + [(f"Minv[{c * nq + r}]", Minv[c][r])
+                             for c in range(nq) for r in range(nq)])
+
+
+def _gen_knot_cost(cd, key, nq):
+    em = Emitter()
+    q, qd, u, r3 = (_inputs(em, "q", nq), _inputs(em, "qd", nq),
+                    _inputs(em, "u", nq), _inputs(em, "r3", 3))
+    cs = [ms.cos(x) for x in q]
+    ss = [ms.sin(x) for x in q]
+    Q, qv, Rd, rv = cost_channels(cd, key, _weights(em), q, qd, u, r3,
+                                  cd.fk_ee(cs, ss), Sym(em, "w_track"), None)
+    nx = 2 * nq
+    sig = ("knot_cost(const T* q, const T* qd, const T* u, const T* r3, "
+           "T w_track, const T* w, O Q, O qv, O R_diag, O rv)")
+    return sig, em.render([(f"Q[{r * nx + k}]", Q[r][k]) for r in range(nx) for k in range(nx)]
+                          + [(f"qv[{r}]", qv[r]) for r in range(nx)]
+                          + [(f"R_diag[{r}]", Rd[r]) for r in range(nq)]
+                          + [(f"rv[{r}]", rv[r]) for r in range(nq)])
+
+
+def _gen_knot_defect(nq):
+    em = Emitter()
+    q, qd, xn, qdd = (_inputs(em, "q", nq), _inputs(em, "qd", nq),
+                      _inputs(em, "xn", 2 * nq), _inputs(em, "qdd", nq))
+    c = defect_channels(q, qd, xn, qdd, Sym(em, "dt"), 2, None)
+    sig = ("knot_defect(const T* q, const T* qd, const T* xn, const T* qdd, "
+           "T dt, O c)")
+    return sig, em.render([(f"c[{r}]", c[r]) for r in range(2 * nq)])
+
+
+def _dual_trace(cd, nq):
+    """One trace of the dual RNEA with qdd an input: (emitter, cols[z][j])."""
+    em = Emitter()
+    q, qd, qdd, fe = (_inputs(em, "q", nq), _inputs(em, "qd", nq),
+                      _inputs(em, "qdd", nq), _inputs(em, "fe", 6))
+    cols = dual_id_columns(cd, [ms.cos(x) for x in q], [ms.sin(x) for x in q],
+                           qd, qdd, fe)
+    return em, cols
+
+
+def split_directions(em, cols, groups):
+    """The 2 NQ tangent directions in `groups` parts: greedy, the direction
+    with the most rendered lines first, each to the part with the fewest
+    lines so far (a part's lines counted as rendered, shared lines once).
+    Returns (parts: sorted direction lists, lines per part)."""
+    def lines(dirs):
+        return len(em.live([ch for z in dirs for ch in cols[z]]))
+
+    single = [lines([z]) for z in range(len(cols))]
+    parts, sizes = [[] for _ in range(groups)], [0] * groups
+    for z in sorted(range(len(cols)), key=lambda z: (-single[z], z)):
+        p = min(range(groups), key=lambda p: (sizes[p], p))
+        parts[p].append(z)
+        sizes[p] = lines(parts[p])
+    return [sorted(p) for p in parts], sizes
+
+
+def _gen_knot_dual(em, cols, dirs, nq, name):
+    nx = 2 * nq
+    sig = (f"{name}(const T* q, const T* qd, const T* qdd, const T* fe, O dID)")
+    return sig, em.render([(f"dID[{j * nx + z}]", cols[z][j])
+                           for z in dirs for j in range(nq)])
+
+
+def _gen_knot_ab(cols, dirs, bcols, nq, name):
+    """A's columns `dirs` and B's columns `bcols` from Minv and dID, the
+    structural zeros of dID folded as in knot_kkt."""
+    nx = 2 * nq
+    em = Emitter()
+    Minv = [[Sym(em, f"Minv[{c * nq + r}]") for r in range(nq)] for c in range(nq)]
+    dID = [[None if cols[z][j] is None else Sym(em, f"dID[{j * nx + z}]")
+            for j in range(nq)] for z in range(nx)]
+    A, Bm = ab_channels(dqdd_channels(Minv, dID, nq), Minv, Sym(em, "dt"), 2, nq)
+    sig = f"{name}(const T* Minv, const T* dID, T dt, O A, O B)"
+    return sig, em.render([(f"A[{r * nx + z}]", A[r][z]) for r in range(nx) for z in dirs]
+                          + [(f"B[{r * nq + c}]", Bm[r][c]) for r in range(nx)
+                             for c in bcols])
+
+
+def _dispatch(name, args, params, groups_parts):
+    """template <int G, int P, ...> name(...): the part function of (G, P)."""
+    lines = ["template <int G, int P, typename T, typename O>",
+             f"GATO_HD inline void {name}({params}) {{"]
+    kw = "if"
+    for g, p in groups_parts:
+        lines.append(f"  {kw} constexpr (G == {g} && P == {p}) "
+                     f"{name}_g{g}_p{p}<T, O>({args});")
+        kw = "else if"
+    lines += ["  else static_assert(G < 0, \"no such split of the tangent directions\");",
+              "}"]
+    return lines
+
+
 def generate(robot: str) -> str:
     """The header text for one robot (trapezoidal integrator, the default
     and the only one the CUDA kernels take)."""
@@ -212,8 +336,8 @@ def generate(robot: str) -> str:
     parts = [
         f"// Generated by `python -m gato_tpu_torch.dynamics.codegen` from the "
         f"{robot} URDF. Do not edit.",
-        "// Straight-line forward dynamics, per-knot KKT blocks and per-knot "
-        "merit terms,",
+        "// Straight-line forward dynamics, per-knot KKT blocks (whole, and in "
+        "stages) and per-knot merit terms,",
         "// traced from gato_tpu_torch/ops/{kkt_fast,merit_fast}.py with the "
         "robot constants folded.",
         "// Weights w: q_cost, qd_cost, u_cost, N_cost, q_lim_cost, "
@@ -229,12 +353,41 @@ def generate(robot: str) -> str:
         f"constexpr int NQ = {nq};",
         f"constexpr int NX = {2 * nq};",
     ]
-    for sig, body in (_gen_fd(cd, nq), _gen_knot_kkt(cd, model.key, nq),
-                      _gen_knot_merit(cd, model.key, nq)):
+    em, cols = _dual_trace(cd, nq)
+    funcs = [_gen_fd(cd, nq), _gen_knot_kkt(cd, model.key, nq),
+             _gen_knot_merit(cd, model.key, nq), _gen_knot_dyn(cd, nq),
+             _gen_knot_cost(cd, model.key, nq), _gen_knot_defect(nq)]
+    tables, groups_parts = [
+        "",
+        "// The staged KKT's split of the dual RNEA's tangent directions: part P of",
+        "// G holds directions KKT_DIRS_G<G>[P] (z < NQ: q_z; z >= NQ: qd_{z - NQ};",
+        "// -1 pads), knot_dual<G, P> computes their dID columns in KKT_LINES_G<G>[P]",
+        "// lines, knot_ab<G, P> their A columns and B's columns c = P mod G.",
+        f"constexpr int KKT_SPLITS[{len(KKT_SPLITS)}] = "
+        f"{{{', '.join(map(str, KKT_SPLITS))}}};"], []
+    for g in KKT_SPLITS:
+        parts_g, sizes = split_directions(em, cols, g)
+        rows = ", ".join("{" + ", ".join(map(str, d + [-1] * (2 * nq - len(d)))) + "}"
+                         for d in parts_g)
+        tables += [f"constexpr int KKT_DIRS_G{g}[{g}][NX] = {{{rows}}};",
+                   f"constexpr int KKT_LINES_G{g}[{g}] = {{{', '.join(map(str, sizes))}}};"]
+        for p, dirs in enumerate(parts_g):
+            funcs.append(_gen_knot_dual(em, cols, dirs, nq, f"knot_dual_g{g}_p{p}"))
+            funcs.append(_gen_knot_ab(cols, dirs, [c for c in range(nq) if c % g == p],
+                                      nq, f"knot_ab_g{g}_p{p}"))
+            groups_parts.append((g, p))
+    parts += tables
+    for sig, body in funcs:
         tmpl = "typename T, typename O" if " O " in sig else "typename T"
         parts += ["", f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
         parts += body
         parts.append("}")
+    parts += [""] + _dispatch(
+        "knot_dual", "q, qd, qdd, fe, dID",
+        "const T* q, const T* qd, const T* qdd, const T* fe, O dID", groups_parts)
+    parts += [""] + _dispatch(
+        "knot_ab", "Minv, dID, dt, A, B",
+        "const T* Minv, const T* dID, T dt, O A, O B", groups_parts)
     parts += ["", f"}}}}  // namespace gato::{robot}", ""]
     return "\n".join(parts)
 

@@ -11,6 +11,10 @@ Port of gato_tpu/ops/pallas_iter.py:
   iteration_variant        the kernel variant that N takes: the PCG blocks
                            in shared memory with G threads per knot up to
                            N = 64, in the global scratch past that;
+  phase_a_default          phase A's KKT in the variant: staged over the
+                           G = 4 threads of a knot (csrc/kkt_stages.cuh) in
+                           the shared layout at G = 4, one thread per knot
+                           running the whole knot_kkt elsewhere;
   launch_iteration         builds the IterArgs of csrc/sqp_iter.cuh and
                            launches csrc/iter.cu or csrc/bsqp_iter.cu.
 
@@ -46,6 +50,9 @@ SHARED_MAX_N = 64
 # G in {1, 2, 4} in chip_smoke.py's timings at N=32, B=512 (PERF.md); at
 # N=64 bsqp_iter's G=2 is within 3 % of it. G W stays within MAX_THREADS.
 SHARED_GROUPS = 4
+# the one variant with the staged phase A: G = 4 groups, one part each
+STAGED_A = ("shared", 4)
+PHASE_A = ("one", "staged")
 
 
 def warp_threads(N: int) -> int:
@@ -75,6 +82,22 @@ def iteration_variant(N: int) -> tuple[str, int]:
     return "global", 1
 
 
+def phase_a_default(layout: str, groups: int) -> str:
+    """Phase A's KKT in a variant: "staged" (the G threads of a knot share
+    knot_kkt's stages) where the variant is STAGED_A, else "one" (thread k
+    of group 0 runs all of knot_kkt). "one" at STAGED_A is compiled too, as
+    the comparison arm for measurements."""
+    return "staged" if (layout, groups) == STAGED_A else "one"
+
+
+def _phase_a_code(layout: str, groups: int, phase_a: str | None) -> int:
+    phase_a = phase_a or phase_a_default(layout, groups)
+    if phase_a not in PHASE_A or (phase_a != "one" and (layout, groups) != STAGED_A):
+        raise ValueError(f"phase A {phase_a!r} is not compiled for the "
+                         f"{layout} layout at G={groups}")
+    return PHASE_A.index(phase_a)
+
+
 class _IterArgs(ctypes.Structure):
     """Mirror of IterArgs in csrc/sqp_iter.cuh."""
 
@@ -93,12 +116,14 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
                      integrator_type: int, dt: float, tensors: dict, *,
                      max_pcg_iters: int, num_alphas: int = 0,
                      adapt_rho: bool = False, seeded: bool = False,
-                     variant: tuple[str, int] | None = None):
+                     variant: tuple[str, int] | None = None,
+                     phase_a: str | None = None):
     """Launch csrc/<name>.cu (bsqp_iter or iter) on `tensors`, {IterArgs
     field: CUDA tensor}; fields left out are null. X, U, lam, xs, ref, fe
     are checked here, the caller checks the rest. `variant` (layout, G)
-    names the kernel variant for a measurement; None takes
-    iteration_variant(N). A launch that the card refuses raises."""
+    and `phase_a` ("staged" or "one") name the kernel variant for a
+    measurement; None takes iteration_variant(N) and phase_a_default. A
+    launch that the card refuses raises."""
     require_cuda_robot(model)
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
@@ -121,9 +146,10 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
     knot_floats.restype = ctypes.c_int
     fn = getattr(lib, f"gato_{name}_indy7")
     fn.argtypes = [ctypes.POINTER(_IterArgs), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     layout, groups = variant or iteration_variant(N)
+    staged = _phase_a_code(layout, groups, phase_a)
     scratch = torch.empty(knot_floats() * B * N, dtype=torch.float32,
                           device=X.device)
     args = _IterArgs(scratch=scratch.data_ptr(),
@@ -132,24 +158,29 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
                      max_pcg_iters=max_pcg_iters, num_alphas=num_alphas,
                      adapt_rho=int(adapt_rho), seeded=int(seeded), dt=dt,
                      w=(ctypes.c_float * 7)(*cp.weights()))
-    err = fn(ctypes.byref(args), LAYOUTS[layout], groups,
+    err = fn(ctypes.byref(args), LAYOUTS[layout], groups, staged,
              torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch ({layout} layout, G={groups},"
-                           f" N={N}) failed: CUDA error {err}")
+                           f" phase A {PHASE_A[staged]}, N={N}) failed: "
+                           f"CUDA error {err}")
 
 
-def variant_resources(name: str, N: int, layout: str, groups: int):
+def variant_resources(name: str, N: int, layout: str, groups: int,
+                      phase_a: str | None = None):
     """(shared-memory bytes, resident blocks per SM) of a variant of
     csrc/<name>.cu at horizon N, as the library reports them
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = load_library(name)
     nbytes = getattr(lib, f"gato_{name}_smem_bytes")
     per_sm = getattr(lib, f"gato_{name}_blocks_per_sm")
-    for f, res in ((nbytes, ctypes.c_longlong), (per_sm, ctypes.c_int)):
-        f.argtypes = [ctypes.c_int] * 3
-        f.restype = res
-    return nbytes(N, LAYOUTS[layout], groups), per_sm(N, LAYOUTS[layout], groups)
+    nbytes.argtypes = [ctypes.c_int] * 3
+    nbytes.restype = ctypes.c_longlong
+    per_sm.argtypes = [ctypes.c_int] * 4
+    per_sm.restype = ctypes.c_int
+    staged = _phase_a_code(layout, groups, phase_a)
+    return (nbytes(N, LAYOUTS[layout], groups),
+            per_sm(N, LAYOUTS[layout], groups, staged))
 
 
 def sqp_iter_core_reference(model: RobotModel, cp: CostParams, X, U, x_s,
@@ -172,18 +203,20 @@ def sqp_iter_core_reference(model: RobotModel, cp: CostParams, X, U, x_s,
 def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
                        f_ext, lam, rho, pcg_tol, skip, dt: float,
                        max_pcg_iters: int, integrator_type: int = 2, *,
-                       variant: tuple[str, int] | None = None):
+                       variant: tuple[str, int] | None = None,
+                       phase_a: str | None = None):
     """sqp_iter_core_reference's contract: csrc/iter.cu on CUDA tensors
-    (float32, N <= 128), the plain version on CPU tensors. `variant` names
-    the kernel variant for a measurement (launch_iteration).
+    (float32, N <= 128), the plain version on CPU tensors. `variant` and
+    `phase_a` name the kernel variant for a measurement
+    (launch_iteration).
 
     The kernel replaces gato_tpu/ops/pallas_iter.py::_iter_kernel with
-    phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh). Like them it is
-    bound by the generated per-knot KKT code's registers (it spills) in
-    phases A-C; up to N = 64 the PCG loop reads each knot's four 12x12
-    blocks from shared memory, G threads per knot, so its traffic stays on
-    the SM; past that it re-reads them from an element-major global
-    scratch."""
+    phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh). Up to N = 64 the
+    four threads of a knot share phase A's KKT in stages and the PCG loop
+    reads each knot's four 12x12 blocks from shared memory, G threads per
+    knot, so its traffic stays on the SM; past that one thread per knot
+    runs the whole generated KKT code (it spills) and the loop re-reads the
+    blocks from an element-major global scratch."""
     if X.device.type == "cpu":
         return sqp_iter_core_reference(model, cp, X, U, x_s, ref, f_ext, lam,
                                        rho, pcg_tol, skip, dt, max_pcg_iters,
@@ -202,7 +235,7 @@ def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
         dict(X=X, U=U, lam=lam, xs=x_s, ref=ref, fe=f_ext, rho=rho,
              eps=pcg_tol, conv=skip.to(torch.float32), lam_o=lam_o,
              pcg_iters=iters, dzx_o=dzx, dzu_o=dzu),
-        max_pcg_iters=max_pcg_iters, variant=variant)
+        max_pcg_iters=max_pcg_iters, variant=variant, phase_a=phase_a)
     sqp_iter_core_cuda.launches += 1
     return dzx, dzu, lam_o, iters
 

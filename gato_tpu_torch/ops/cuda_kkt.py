@@ -19,6 +19,16 @@ from .cuda_sim import check_cuda, require_cuda_robot
 from .kkt import KKTSystem
 from .kkt_fast import setup_kkt_batched
 
+# threads per knot of the staged kernel: the fastest of the compiled splits
+# (KKT_GROUP_CHOICES) in chip_smoke.py's timings at N=32 B=512 and N=256
+# B=64 (PERF.md): at G = 2 a CTA of 32 knots fits 4 to an SM, so a batch
+# of 16,384 knots runs in one wave
+KKT_GROUPS = 2
+KKT_GROUP_CHOICES = (2, 4)
+# (layout, G): the staged kernel with G threads per knot, or the earlier
+# one-thread kernel ("one", 1), taken only when forced
+VARIANTS = tuple(("staged", g) for g in KKT_GROUP_CHOICES) + (("one", 1),)
+
 
 class _KktArgs(ctypes.Structure):
     """Mirror of KktArgs in csrc/kkt.cu."""
@@ -29,17 +39,42 @@ class _KktArgs(ctypes.Structure):
         + [("dt", ctypes.c_float), ("w", ctypes.c_float * 7)])
 
 
+def _variant_code(variant) -> int:
+    """csrc/kkt.cu's variant argument: 0 for "one", G for ("staged", G)."""
+    layout, groups = variant
+    if (layout, groups) not in VARIANTS:
+        raise ValueError(f"kkt kernel variant {variant} is not compiled; "
+                         f"one of {VARIANTS}")
+    return 0 if layout == "one" else groups
+
+
+def variant_resources(variant) -> tuple[int, int]:
+    """(dynamic shared-memory bytes, resident CTAs per SM) of a variant, as
+    the library reports them (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = load_library("kkt")
+    code = _variant_code(variant)
+    nbytes, per_sm = lib.gato_kkt_smem_bytes, lib.gato_kkt_blocks_per_sm
+    for f, res in ((nbytes, ctypes.c_longlong), (per_sm, ctypes.c_int)):
+        f.argtypes = [ctypes.c_int]
+        f.restype = res
+    return nbytes(code), per_sm(code)
+
+
 def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
                            ref, f_ext, dt: float,
-                           integrator_type: int = 2) -> KKTSystem:
+                           integrator_type: int = 2, *,
+                           variant: tuple[str, int] | None = None) -> KKTSystem:
     """setup_kkt_batched's contract: X (B,N,nx), U (B,N-1,nu), x_s (B,nx),
     ref (B,N,>=3), f_ext (B,6) -> KKTSystem with (B, ...) leading axes.
 
     CUDA kernel: csrc/kkt.cu, replacing gato_tpu/ops/pallas_kkt.py::
-    _kkt_kernel; one thread per (problem, knot) runs the generated knot_kkt,
-    the last knot with the terminal tracking weight. Bound by that
-    straight-line code's registers (it spills). c_0 = x_0 - x_s is set
-    here."""
+    _kkt_kernel. By default ("staged", KKT_GROUPS) at every N: KKT_GROUPS
+    threads per knot share the generated knot_kkt in stages (a primal, then
+    a part of the dual RNEA's tangent columns each), the outputs staged in
+    shared memory and stored coalesced. `variant` forces another, for
+    measurements only: ("staged", G) for G in KKT_GROUP_CHOICES, or ("one",
+    1), the earlier kernel (one thread per knot runs all of knot_kkt and
+    spills). c_0 = x_0 - x_s is set here."""
     if X.device.type == "cpu":
         return setup_kkt_batched(model, cp, X, U, x_s, ref, f_ext, dt,
                                  integrator_type)
@@ -58,6 +93,8 @@ def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
         check_cuda(name, t, shape)
     if ref.shape[-1] < 3:
         raise ValueError("ref needs the EE xyz in its first 3 columns")
+    variant = variant or ("staged", KKT_GROUPS)
+    code = _variant_code(variant)
 
     def empty(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=X.device)
@@ -67,18 +104,22 @@ def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
                     A=empty(B, N - 1, nx, nx), B=empty(B, N - 1, nx, nu),
                     c=empty(B, N, nx))
     lib = load_library("kkt")
-    sink_floats = lib.gato_kkt_sink_floats
-    sink_floats.restype = ctypes.c_int
-    sink = empty(B, sink_floats())
+    sink = None
+    if code == 0:
+        sink_floats = lib.gato_kkt_sink_floats
+        sink_floats.restype = ctypes.c_int
+        sink = empty(B, sink_floats())
     fn = lib.gato_kkt_indy7
-    fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     args = _KktArgs(*[t.data_ptr() for t in (
-        X, U, ref, f_ext, kkt.Q, kkt.q, kkt.R, kkt.r, kkt.A, kkt.B, kkt.c,
-        sink)], B, N, ref.shape[-1], dt, (ctypes.c_float * 7)(*cp.weights()))
-    err = fn(ctypes.byref(args), torch.cuda.current_stream(X.device).cuda_stream)
+        X, U, ref, f_ext, kkt.Q, kkt.q, kkt.R, kkt.r, kkt.A, kkt.B, kkt.c)],
+        None if sink is None else sink.data_ptr(), B, N, ref.shape[-1], dt,
+        (ctypes.c_float * 7)(*cp.weights()))
+    err = fn(ctypes.byref(args), code,
+             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"kkt kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"kkt kernel launch ({variant}) failed: CUDA error {err}")
     setup_kkt_batched_cuda.launches += 1
     torch.sub(X[:, 0], x_s, out=kkt.c[:, 0])
     return kkt

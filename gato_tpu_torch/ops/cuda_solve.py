@@ -170,22 +170,23 @@ MAX_ALPHAS = 15  # merit slots in shared memory, alpha = 0 included
 
 def sqp_iter_cuda(model: RobotModel, cp: CostParams, prob: Problem,
                   st: IterState, settings: BSQPSettings,
-                  seeded: bool, *, variant: tuple[str, int] | None = None
-                  ) -> tuple[IterState, IterStats]:
+                  seeded: bool, *, variant: tuple[str, int] | None = None,
+                  phase_a: str | None = None) -> tuple[IterState, IterStats]:
     """One SQP iteration: csrc/bsqp_iter.cu on CUDA tensors (float32), the
-    plain version on CPU tensors. `variant` names the kernel variant for a
-    measurement (ops/cuda_iter.py::launch_iteration); None lets N decide.
+    plain version on CPU tensors. `variant` and `phase_a` name the kernel
+    variant for a measurement (ops/cuda_iter.py::launch_iteration); None
+    lets N decide.
 
     The kernel replaces gato_tpu/ops/pallas_solve.py::_solve_kernel as
     launched by sqp_solve_pallas_chained: one thread block per problem
-    (N <= 128), one thread per knot outside the PCG loop. Up to N = 64 the
-    per-knot 12x12 Schur and preconditioner blocks move into shared memory
-    for the loop, which G threads per knot share, so the loop's traffic
-    stays on the SM and the kernel is bound by the registers of the
-    generated per-knot KKT code (which spills) in phases A-C, at the
-    residency that the shared memory leaves (2 problems per SM at N = 32).
-    Past N = 64 the loop re-reads the blocks from an element-major global
-    scratch.
+    (N <= 128), one thread per knot outside phase A's KKT and the PCG loop.
+    Up to N = 64 the four threads of a knot share the KKT in stages
+    (csrc/kkt_stages.cuh) and the per-knot 12x12 Schur and preconditioner
+    blocks move into shared memory for the loop, which G threads per knot
+    share, so the loop's traffic stays on the SM, at the residency that the
+    shared memory leaves (2 problems per SM at N = 32). Past N = 64 one
+    thread per knot runs the whole generated KKT code (it spills) and the
+    loop re-reads the blocks from an element-major global scratch.
     """
     if st.X.device.type == "cpu":
         return sqp_iter_reference(model, cp, prob, st, settings, seeded)
@@ -217,7 +218,8 @@ def sqp_iter_cuda(model: RobotModel, cp: CostParams, prob: Problem,
              conv_o=out.conv, sqp_o=out.sqp, ls_merit=stats.ls_merit,
              ls_step=stats.ls_step, pcg_iters=stats.pcg_iters),
         max_pcg_iters=settings.max_pcg_iters, num_alphas=settings.num_alphas,
-        adapt_rho=settings.adapt_rho, seeded=seeded, variant=variant)
+        adapt_rho=settings.adapt_rho, seeded=seeded, variant=variant,
+        phase_a=phase_a)
     sqp_iter_cuda.launches += 1
     return out, stats
 

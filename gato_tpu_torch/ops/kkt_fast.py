@@ -51,15 +51,11 @@ def _barrier_grad(x, lo, hi):
     return -1.0 / d1 + 1.0 / d2
 
 
-def _fd_and_grad_channels(cd: ChannelizedDynamics, q, qd, u, fe):
-    """Returns (qdd (nq channels), dqdd (nq x 2nq channel lists),
-    Minv (nq x nq channels), plus primal FK products (Rws, pws))."""
+def fd_primal_channels(cd: ChannelizedDynamics, cs, ss, qd, u, fe):
+    """The primal half of the forward dynamics: (qdd (nq channels), Minv
+    (nq x nq channels, Minv[c][r] = (M^-1)[r, c], column c's solve))."""
     nq = cd.nq
-    cs = [ms.cos(x) for x in q]
-    ss = [ms.sin(x) for x in q]
-
-    zero = [None] * nq
-    bias = cd.rnea(cs, ss, qd, zero, f_ext=fe)
+    bias = cd.rnea(cs, ss, qd, [None] * nq, f_ext=fe)
     M = cd.crba(cs, ss)
     L, inv_d = cd.chol_factor(M)
     rhs = [chsub(u[i], bias[i]) for i in range(nq)]
@@ -67,43 +63,50 @@ def _fd_and_grad_channels(cd: ChannelizedDynamics, q, qd, u, fe):
     Minv = [cd.chol_solve_factored(
         L, inv_d, [1.0 if r == c else None for r in range(nq)])
         for c in range(nq)]  # Minv[c][r] = (M^-1)[r, c]; symmetric
+    return qdd, Minv
 
-    # dual pass: dID/d(q, qd) at the achieved qdd
+
+def dual_id_columns(cd: ChannelizedDynamics, cs, ss, qd, qdd, fe):
+    """The dual RNEA at the achieved qdd: cols[z][j] = dID_j / dz for the
+    2 nq tangent directions z (q_z for z < nq, qd_{z - nq} past it); None
+    where structurally zero. Each direction's channels depend on no other
+    direction's, so any subset of them is a slice of this trace."""
+    nq = cd.nq
     cs_d = [Dual(cs[i], {i: chneg(ss[i])}) for i in range(nq)]
     ss_d = [Dual(ss[i], {i: cs[i]}) for i in range(nq)]
     qd_d = [Dual(qd[i], {nq + i: 1.0}) for i in range(nq)]
     tau_d = cd.rnea(cs_d, ss_d, qd_d, qdd, f_ext=fe)
+    return [[tau_d[j].t.get(z) if isinstance(tau_d[j], Dual) else None
+             for j in range(nq)] for z in range(2 * nq)]
 
-    # dqdd[i][z] = -sum_j Minv[i][j] dID[j][z]
+
+def dqdd_channels(Minv, cols, nq):
+    """dqdd[i][z] = -sum_j Minv[j][i] dID[j][z]."""
     dqdd = [[None] * (2 * nq) for _ in range(nq)]
     for z in range(2 * nq):
-        col = [tau_d[j].t.get(z) if isinstance(tau_d[j], Dual) else None
-               for j in range(nq)]
         for i in range(nq):
             dqdd[i][z] = chneg(chsum(
-                [chmul(Minv[j][i], col[j]) for j in range(nq)]))
+                [chmul(Minv[j][i], cols[z][j]) for j in range(nq)]))
+    return dqdd
+
+
+def _fd_and_grad_channels(cd: ChannelizedDynamics, q, qd, u, fe):
+    """Returns (qdd (nq channels), dqdd (nq x 2nq channel lists),
+    Minv (nq x nq channels), plus primal FK products (Rws, pws))."""
+    cs = [ms.cos(x) for x in q]
+    ss = [ms.sin(x) for x in q]
+    qdd, Minv = fd_primal_channels(cd, cs, ss, qd, u, fe)
+    cols = dual_id_columns(cd, cs, ss, qd, qdd, fe)
+    dqdd = dqdd_channels(Minv, cols, cd.nq)
     fk = cd.fk_ee(cs, ss)
     return qdd, dqdd, Minv, fk
 
 
-def kkt_knot_channels_structured(cd: ChannelizedDynamics, key: str,
-                                 cp: CostParams, q, qd, u, xn, r3, fe, dt,
-                                 integrator_type: int, like, w_track=None):
-    """Per-work-item KKT channels for non-terminal knots, in structured form
-    (channel lists that keep `None` structural zeros). Returns (A_ch nx x nx,
-    B_ch nx x nu, c_ch nx, Q_ch nx x nx, qv nx, R_diag nu, rv nu).
-
-    w_track: optional channel overriding cp.q_cost as the tracking weight;
-    N_cost makes the same formula emit the terminal-knot cost blocks
-    (identical to terminal_cost_channels)."""
-    nq = cd.nq
+def ab_channels(dqdd, Minv, dt, integrator_type: int, nq: int):
+    """A (nx x nx) and B (nx x nu) channels of the integrator
+    (integrator.cuh:65-188 formulas; trapezoidal default) from dqdd/dx and
+    dqdd/du = Minv."""
     nx = 2 * nq
-    if w_track is None:
-        w_track = cp.q_cost
-
-    qdd, dqdd, Minv, (p_ee, Rws, pws) = _fd_and_grad_channels(cd, q, qd, u, fe)
-
-    # ---- A, B, c (integrator.cuh:65-188 formulas; trapezoidal default) ----
     it = integrator_type
     A_ch = [[None] * nx for _ in range(nx)]
     B_ch = [[None] * nq for _ in range(nx)]
@@ -132,8 +135,13 @@ def kkt_knot_channels_structured(cd: ChannelizedDynamics, key: str,
             else:
                 B_ch[r][c] = chmul(0.5 * dt * dt, du_rc)
             B_ch[nq + r][c] = chmul(dt, du_rc)
+    return A_ch, B_ch
 
-    # defect c_{k+1} = x_next - integrate(x, qdd)
+
+def defect_channels(q, qd, xn, qdd, dt, integrator_type: int, like):
+    """The defect c_{k+1} = x_next - integrate(x, qdd), nx channels."""
+    nq = len(q)
+    it = integrator_type
     c_ch = []
     for i in range(nq):
         if it == 0:
@@ -146,8 +154,17 @@ def kkt_knot_channels_structured(cd: ChannelizedDynamics, key: str,
     for i in range(nq):
         qd_n = qd[i] + dt * _vec1(qdd[i], like)
         c_ch.append(xn[nq + i] - qd_n)
+    return c_ch
 
-    # ---- cost gradient / Hessian (cost.knot_cost_grad_hess semantics) ----
+
+def cost_channels(cd: ChannelizedDynamics, key: str, cp: CostParams, q, qd,
+                  u, r3, fk, w_track, like):
+    """The knot's cost gradient and Hessian (cost.knot_cost_grad_hess
+    semantics) from the FK products fk = (p_ee, Rws, pws): (Q nx x nx, qv
+    nx, R_diag nu, rv nu)."""
+    nq = cd.nq
+    nx = 2 * nq
+    p_ee, Rws, pws = fk
     (jlo, jhi), (vlo, vhi), (clo, chi) = _limits(key)
     err = [p_ee[k] - r3[k] for k in range(3)]
     # J columns: w_i x (p_ee - p_i)
@@ -181,6 +198,31 @@ def kkt_knot_channels_structured(cd: ChannelizedDynamics, key: str,
     rv = [cp.u_cost * u[i] + cp.ctrl_lim_cost * bg_u[i] for i in range(nq)]
     R_diag = [cp.u_cost + cp.ctrl_lim_cost * bg_u[i] * bg_u[i]
               for i in range(nq)]
+    return Q_ch, qv, R_diag, rv
+
+
+def kkt_knot_channels_structured(cd: ChannelizedDynamics, key: str,
+                                 cp: CostParams, q, qd, u, xn, r3, fe, dt,
+                                 integrator_type: int, like, w_track=None):
+    """Per-work-item KKT channels for non-terminal knots, in structured form
+    (channel lists that keep `None` structural zeros). Returns (A_ch nx x nx,
+    B_ch nx x nu, c_ch nx, Q_ch nx x nx, qv nx, R_diag nu, rv nu).
+
+    w_track: optional channel overriding cp.q_cost as the tracking weight;
+    N_cost makes the same formula emit the terminal-knot cost blocks
+    (identical to terminal_cost_channels).
+
+    The stages (fd_primal_channels, dual_id_columns, dqdd_channels,
+    ab_channels, defect_channels, cost_channels) are what
+    dynamics/codegen.py also emits one by one for the staged CUDA kernels."""
+    nq = cd.nq
+    if w_track is None:
+        w_track = cp.q_cost
+    qdd, dqdd, Minv, fk = _fd_and_grad_channels(cd, q, qd, u, fe)
+    A_ch, B_ch = ab_channels(dqdd, Minv, dt, integrator_type, nq)
+    c_ch = defect_channels(q, qd, xn, qdd, dt, integrator_type, like)
+    Q_ch, qv, R_diag, rv = cost_channels(cd, key, cp, q, qd, u, r3, fk,
+                                         w_track, like)
     return A_ch, B_ch, c_ch, Q_ch, qv, R_diag, rv
 
 

@@ -1,7 +1,10 @@
 """The code generator (gato_tpu_torch.dynamics.codegen) without a card:
 the committed header is what the generator writes today, and the header,
 compiled as host C++ (T = double), computes what the plain PyTorch trace
-computes: fd, knot_kkt and knot_merit to rtol 1e-10 on random inputs.
+computes: fd, knot_kkt and knot_merit to rtol 1e-10 on random inputs; and
+the staged functions (knot_dyn, knot_dual, knot_ab, knot_defect,
+knot_cost), composed as csrc/kkt.cu composes them, compute knot_kkt's
+outputs for every split of the tangent directions.
 """
 
 import ctypes
@@ -19,6 +22,9 @@ from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch.ops.kkt_fast import _mat, _vec, kkt_knot_channels_structured
 from gato_tpu_torch.ops.merit_fast import _get_cd, _knot_parts
 from gato_tpu_torch.robots.model import load_robot
+
+_KKT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 2
+                 + [ctypes.c_void_p] * 8)
 
 M = 7  # random work items
 NQ, NX = 6, 12
@@ -39,6 +45,41 @@ void h_kkt(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
 void h_merit(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
              const T* fe, T dt, T w_track, const T* w, T* out) {
   gato::indy7::knot_merit<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, out);
+}
+}
+namespace gato { namespace indy7 {
+// csrc/kkt.cu's stages on one thread: the primal, every part's dual columns
+// and A/B columns, the defect, the cost
+template <int G, int P = 0>
+void staged(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
+            const T* fe, T dt, T w_track, const T* w, T* A, T* B, T* c, T* Q,
+            T* qv, T* Rd, T* rv, T* qdd, T* Minv, T* dID) {
+  if constexpr (P == 0) {
+    knot_dyn<T, T*>(q, qd, u, fe, qdd, Minv);
+    knot_cost<T, T*>(q, qd, u, r3, w_track, w, Q, qv, Rd, rv);
+    knot_defect<T, T*>(q, qd, xn, qdd, dt, c);
+  }
+  if constexpr (P < G) {
+    knot_dual<G, P, T, T*>(q, qd, qdd, fe, dID);
+    knot_ab<G, P, T, T*>(Minv, dID, dt, A, B);
+    staged<G, P + 1>(q, qd, u, xn, r3, fe, dt, w_track, w, A, B, c, Q, qv, Rd,
+                     rv, qdd, Minv, dID);
+  }
+}
+}}
+extern "C" {
+int h_split(int G, int P, int* dirs) {
+  const int* row = G == 2 ? gato::indy7::KKT_DIRS_G2[P] : gato::indy7::KKT_DIRS_G4[P];
+  int n = 0;
+  for (int i = 0; i < gato::indy7::NX && row[i] >= 0; ++i) dirs[n++] = row[i];
+  return n;
+}
+void h_staged(int G, const T* q, const T* qd, const T* u, const T* xn,
+              const T* r3, const T* fe, T dt, T w_track, const T* w, T* A,
+              T* B, T* c, T* Q, T* qv, T* Rd, T* rv, T* dID) {
+  T qdd[6], Minv[36];
+  auto f = G == 2 ? gato::indy7::staged<2> : gato::indy7::staged<4>;
+  f(q, qd, u, xn, r3, fe, dt, w_track, w, A, B, c, Q, qv, Rd, rv, qdd, Minv, dID);
 }
 }
 """
@@ -114,7 +155,7 @@ def test_generated_knot_kkt_matches_trace(host_lib):
     ref = [_mat(A, like), _mat(Bm, like), _vec(c, like), _mat(Q, like),
            _vec(qv, like), _vec(Rd, like), _vec(rv, like)]
     fn = host_lib.h_kkt
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 8
+    fn.argtypes = _KKT_ARGTYPES
     w = np.array(WEIGHTS.weights())
     for m in range(M):
         outs = [np.zeros((NX, NX)), np.zeros((NX, NQ)), np.zeros(NX),
@@ -147,3 +188,37 @@ def test_generated_knot_merit_matches_trace(host_lib):
            _ptr(w), _ptr(o))
         out[m] = o
     np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-12)
+
+
+def _kkt_outputs():
+    return [np.zeros((NX, NX)), np.zeros((NX, NQ)), np.zeros(NX),
+            np.zeros((NX, NX)), np.zeros(NX), np.zeros(NQ), np.zeros(NQ)]
+
+
+@pytest.mark.parametrize("groups", codegen.KKT_SPLITS)
+def test_staged_knot_kkt_matches_knot_kkt(host_lib, groups):
+    """knot_dyn, then knot_dual and knot_ab of every part of the split into
+    `groups` parts, knot_defect and knot_cost, composed as csrc/kkt.cu
+    composes them, give knot_kkt's outputs to rtol 1e-10 on random inputs;
+    the header's split (KKT_DIRS_G<groups>) holds each tangent direction in
+    exactly one part."""
+    dirs = []
+    split = host_lib.h_split
+    split.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for p in range(groups):
+        d = np.zeros(NX, dtype=np.int32)
+        dirs += d[:split(groups, p, _ptr(d))].tolist()
+    assert sorted(dirs) == list(range(NX))
+    x = _inputs(4)
+    w = np.array(WEIGHTS.weights())
+    kkt, staged = host_lib.h_kkt, host_lib.h_staged
+    kkt.argtypes = _KKT_ARGTYPES
+    staged.argtypes = [ctypes.c_int] + _KKT_ARGTYPES + [ctypes.c_void_p]
+    for m in range(M):
+        ins = [_ptr(x[k][m].copy()) for k in ("q", "qd", "u", "xn", "r3", "fe")]
+        ref, outs = _kkt_outputs(), _kkt_outputs()
+        kkt(*ins, DT, W_TRACK, _ptr(w), *[_ptr(o) for o in ref])
+        staged(groups, *ins, DT, W_TRACK, _ptr(w), *[_ptr(o) for o in outs],
+               _ptr(np.zeros(NQ * NX)))
+        for o, r in zip(outs, ref):
+            np.testing.assert_allclose(o, r, rtol=1e-10, atol=1e-12)

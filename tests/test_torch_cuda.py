@@ -30,7 +30,7 @@ from gato_tpu_torch._build import load_library
 from gato_tpu_torch.ops.cuda_iter import (SMEM_LIMIT, smem_bytes,
                                           sqp_iter_core_cuda,
                                           sqp_iter_core_reference)
-from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
+from gato_tpu_torch.ops.cuda_kkt import KKT_GROUPS, setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import (MAX_KNOTS, SHARED_GROUPS,
                                          SHARED_MAX_N, _PcgArgs, fits,
@@ -116,20 +116,22 @@ def test_rk4_kernel_matches_plain(dev):
 
 
 # both layouts of the iteration kernels (shared up to N = 64), their edge
-# and a partial last warp (33)
-HORIZONS = (8, 33, 64, 65, 128)
+# and a partial last warp (33), in the phase A that N takes (None: staged
+# up to N = 64); and the one-thread phase A forced in the shared layout
+HORIZONS = ((8, None), (33, None), (64, None), (65, None), (128, None),
+            (8, "one"), (33, "one"), (64, "one"))
 
 
-@pytest.mark.parametrize("N", HORIZONS)
-def test_bsqp_iter_kernel_matches_reference(dev, N):
+@pytest.mark.parametrize("N,phase_a", HORIZONS)
+def test_bsqp_iter_kernel_matches_reference(dev, N, phase_a):
     """One SQP iteration on a warm fig-8 steady state (indy7, B=64,
     DEFAULT_SOLVER_PARAMS, 6 warm-up cycles on the kernel route), in the
-    variant that N takes (ops/cuda_iter.py::iteration_variant): the
-    warm-start merit within 1e-5; steps equal and PCG counts within 3 on
-    95 % of lanes; X and U normwise within 1e-3 where step and count agree;
-    three chained iterations with equal steps on 90 %. Where the float32
-    plain version itself agrees less with the float64 one, these give way
-    (_share, _norm)."""
+    variant that N takes (ops/cuda_iter.py::iteration_variant) with the
+    phase A given: the warm-start merit within 1e-5; steps equal and PCG
+    counts within 3 on 95 % of lanes; X and U normwise within 1e-3 where
+    step and count agree; three chained iterations with equal steps on
+    90 %. Where the float32 plain version itself agrees less with the
+    float64 one, these give way (_share, _norm)."""
     B, dt = 64, 0.01
     m = load_robot("indy7", torch.float32, dev)
     cp = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
@@ -160,7 +162,7 @@ def test_bsqp_iter_kernel_matches_reference(dev, N):
     prob = Problem(x_s, ref(5), fe, hp.mu, hp.pcg_tol, dt)
     st0 = IterState(X, U, lam, hp.rho, hp.drho, zero, zero, zero, zero)
     before = sqp_iter_cuda.launches
-    ko, ks = sqp_iter_cuda(m, cp, prob, st0, settings, seeded=False)
+    ko, ks = sqp_iter_cuda(m, cp, prob, st0, settings, seeded=False, phase_a=phase_a)
     torch.cuda.synchronize()
     assert sqp_iter_cuda.launches == before + 1
     ro, rs = sqp_iter_reference(m, cp, prob, st0, settings, seeded=False)
@@ -221,30 +223,33 @@ def _launched(wrapper, before):
     assert wrapper.launches == before + 1
 
 
-def test_kkt_and_merit_kernels_match_plain(dev):
-    """Every KKTSystem tensor within 1e-4 of its largest |value|; every
-    (lane, alpha) merit within 1e-5, relative; N=20 and N=150 (the merit
-    block loops over knots past 128)."""
+@pytest.mark.parametrize("variant", [("staged", KKT_GROUPS), ("one", 1)])
+@pytest.mark.parametrize("N", (2, 31, 33, 256))
+def test_kkt_and_merit_kernels_match_plain(dev, N, variant):
+    """Every KKTSystem tensor within 1e-4 of its largest |value|, in the
+    staged kkt kernel and the one-thread one, at N=2 (several problems in
+    a CTA), 31 and 33 (knots of two problems in a CTA) and 256; every
+    (lane, alpha) merit within 1e-5, relative (the merit block loops over
+    knots past 128)."""
     m = load_robot("indy7", torch.float32, dev)
-    for N in (20, 150):
-        p = _problem(dev, 16, N, N)
-        args = (p["X"], p["U"], p["x_s"], p["ref"], p["f_ext"], 0.01)
-        before = setup_kkt_batched_cuda.launches
-        k = setup_kkt_batched_cuda(m, COST, *args)
-        _launched(setup_kkt_batched_cuda, before)
-        r = setup_kkt_batched(m, COST, *args)
-        for f in ("Q", "q", "R", "r", "A", "B", "c"):
-            a, b = getattr(k, f), getattr(r, f)
-            assert torch.isfinite(a).all(), f
-            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), f
-        alphas = [0.0] + [0.5 ** j for j in range(8)]
-        margs = (p["X"], p["U"], p["dzx"], p["dzu"], p["x_s"], p["ref"],
-                 p["f_ext"], p["mu"], 0.01, alphas)
-        before = merit_alphas_batched_cuda.launches
-        mk = merit_alphas_batched_cuda(m, COST, *margs)
-        _launched(merit_alphas_batched_cuda, before)
-        mp = merit_alphas_batched(m, COST, *margs)
-        assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
+    p = _problem(dev, 16, N, N)
+    args = (p["X"], p["U"], p["x_s"], p["ref"], p["f_ext"], 0.01)
+    before = setup_kkt_batched_cuda.launches
+    k = setup_kkt_batched_cuda(m, COST, *args, variant=variant)
+    _launched(setup_kkt_batched_cuda, before)
+    r = setup_kkt_batched(m, COST, *args)
+    for f in ("Q", "q", "R", "r", "A", "B", "c"):
+        a, b = getattr(k, f), getattr(r, f)
+        assert torch.isfinite(a).all(), f
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), f
+    alphas = [0.0] + [0.5 ** j for j in range(8)]
+    margs = (p["X"], p["U"], p["dzx"], p["dzu"], p["x_s"], p["ref"],
+             p["f_ext"], p["mu"], 0.01, alphas)
+    before = merit_alphas_batched_cuda.launches
+    mk = merit_alphas_batched_cuda(m, COST, *margs)
+    _launched(merit_alphas_batched_cuda, before)
+    mp = merit_alphas_batched(m, COST, *margs)
+    assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
 
 
 # the pcg kernel's variants at their edges: the shared variant's last N and
@@ -299,10 +304,11 @@ def test_pcg_kernel_matches_plain(dev, N, variant):
                         torch.cuda.current_stream().cuda_stream) != 0
 
 
-@pytest.mark.parametrize("N", HORIZONS)
-def test_iter_kernel_matches_plain(dev, N):
+@pytest.mark.parametrize("N,phase_a", HORIZONS)
+def test_iter_kernel_matches_plain(dev, N, phase_a):
     """The fused-iteration core at B=64 on random inputs, in the variant
-    that N takes: PCG counts within 3 on 95 % of lanes; dZX, dZU and lam,
+    that N takes with the phase A given: PCG counts within 3 on 95 % of
+    lanes; dZX, dZU and lam,
     where the counts agree, within 1e-3 normwise, or where the float32
     plain version itself agrees less with the float64 one, as _share and
     _norm give way; a skipped lane keeps its warm start and reports
@@ -317,7 +323,7 @@ def test_iter_kernel_matches_plain(dev, N):
     args = (p["X"], p["U"], p["x_s"], p["ref"], p["f_ext"], p["lam"], p["rho"],
             tol, skip, 0.01, 200)
     before = sqp_iter_core_cuda.launches
-    ko = sqp_iter_core_cuda(m, COST, *args)
+    ko = sqp_iter_core_cuda(m, COST, *args, phase_a=phase_a)
     _launched(sqp_iter_core_cuda, before)
     ro = sqp_iter_core_reference(m, COST, *args)
     m64 = load_robot("indy7", torch.float64, dev)

@@ -10,7 +10,8 @@ against the JAX package, float64 on the CPU, on identical numpy inputs:
   including the terminal knot as the kkt kernel forms it (the per-knot
   trace with the terminal tracking weight);
 - solver/bsqp.py::select_route, and the entry points' default device;
-- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N.
+- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N,
+  and the variants of the staged KKT (ops/cuda_kkt.py, phase A).
 
 PCG runs to 1e-10 here, so the two Krylov loops stop at the same count and
 their iterates agree to the tolerance-implied level.
@@ -26,10 +27,13 @@ from gato_tpu.ops import kkt as jkkt
 from gato_tpu.ops.kkt_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_iter import iter_channels
 from gato_tpu.ops.pallas_pcg import pcg_channels
+from gato_tpu_torch.dynamics import codegen
 from gato_tpu_torch.interop import model_from_numpy, state_from_numpy
+from gato_tpu_torch.ops import cuda_iter, cuda_kkt
 from gato_tpu_torch.ops.cuda_iter import (MAX_THREADS, SHARED_GROUPS,
                                           SMEM_LIMIT, iteration_variant,
-                                          smem_bytes, sqp_iter_core_reference,
+                                          phase_a_default, smem_bytes,
+                                          sqp_iter_core_reference,
                                           warp_threads)
 from gato_tpu_torch.ops.kkt_fast import (_mat, _vec,
                                          kkt_knot_channels_structured,
@@ -254,3 +258,30 @@ def test_iteration_variant_takes_shared_memory_where_it_fits():
         assert smem_bytes(N, "global", 1) == base
         for g in (1, 2, 4):
             assert smem_bytes(N, "shared", g) == base + 2_304 * N + 8 * g * warp_threads(N)
+
+
+def test_staged_kkt_variants():
+    """The staged KKT's variants: the kkt kernel's G values are the splits
+    that the generated header carries (KKT_DIRS_G<G>); phase A of the
+    iteration kernels is staged exactly where the shared layout has G = 4
+    groups, one per part of the header's 4-way split (every N up to 64);
+    a variant that is not compiled raises before any launch."""
+    assert cuda_kkt.KKT_GROUP_CHOICES == codegen.KKT_SPLITS
+    assert cuda_kkt.KKT_GROUPS in cuda_kkt.KKT_GROUP_CHOICES
+    with open(codegen.header_path("indy7")) as f:
+        header = f.read()
+    for g in codegen.KKT_SPLITS:
+        assert f"constexpr int KKT_DIRS_G{g}[{g}][NX]" in header
+    assert cuda_kkt._variant_code(("one", 1)) == 0
+    assert cuda_kkt._variant_code(("staged", 4)) == 4
+    for bad in (("staged", 6), ("one", 4), ("global", 1)):
+        with pytest.raises(ValueError, match="not compiled"):
+            cuda_kkt._variant_code(bad)
+    for N in range(2, 129):
+        staged = phase_a_default(*iteration_variant(N)) == "staged"
+        assert staged == (N <= 64)
+    assert cuda_iter.STAGED_A == ("shared", 4) and SHARED_GROUPS == 4
+    assert cuda_iter._phase_a_code("shared", 4, "one") == 0
+    for layout, g in (("shared", 2), ("global", 1)):
+        with pytest.raises(ValueError, match="not compiled"):
+            cuda_iter._phase_a_code(layout, g, "staged")
