@@ -12,14 +12,14 @@
 // ops/kkt_fast.py::setup_kkt_batched.
 //
 // Two variants (ops/cuda_kkt.py::setup_kkt_batched_cuda):
-//   staged  (the default, G = 2) a CTA takes KNOTS = 32 consecutive knots
-//           of the flattened (B, N) grid and G threads per knot,
+//   staged  (the default) a CTA takes KNOTS = 32 consecutive knots of
+//           the flattened (B, N) grid and G = KKT_GROUPS = 2 threads per knot,
 //           part-major (warp P runs part P of the 32 knots, so no warp
 //           diverges); the stages of csrc/kkt_stages.cuh, with the knots'
 //           inputs, qdd and Minv and every output in shared memory (Q as
 //           its nonzero blocks), then the outputs leave in coalesced stores
 //           (a warp's 32 threads on 32 consecutive floats of one output
-//           tensor). G in {2, 4} is compiled.
+//           tensor).
 //   one     the earlier kernel, taken only when forced (for measurements):
 //           one thread per knot runs the whole generated knot_kkt and
 //           writes its rows itself.
@@ -30,8 +30,8 @@
 // a part of the tangent columns (about 5k lines at G = 2), without spills;
 // what bounds it is that critical path of straight-line code per CTA and
 // the waves: at G = 2 a CTA (64 threads, 255 registers, 48 KB of shared
-// memory) fits four to an SM, so 16,384 knots take one wave, where G = 4
-// (168 registers) fits three and takes two.
+// memory) fits four to an SM, so 16,384 knots take one wave. G = 4 and 6
+// (shorter parts, three and two CTAs an SM, two waves) were slower.
 #include <cuda_runtime.h>
 
 #include "kkt_stages.cuh"
@@ -125,7 +125,8 @@ __global__ void __launch_bounds__(128) kkt_one_kernel(const gato::KktArgs a) {
 
 // ------------------------------------------------------------- "staged" --
 
-constexpr int KNOTS = 32;  // knots of one CTA: one per lane of each part's warp
+constexpr int KNOTS = 32;       // knots of one CTA: one per lane of each part's warp
+constexpr int KKT_GROUPS = 2;  // threads per knot (ops/cuda_kkt.py mirrors it)
 
 // one knot's slots in shared memory (floats), each an odd stride so that a
 // warp's 32 knots fall on 32 banks: inputs x, x_next, u, ref xyz, f_ext;
@@ -265,16 +266,12 @@ __global__ void __launch_bounds__(KNOTS* G) kkt_staged_kernel(const gato::KktArg
 using KktKernel = void (*)(gato::KktArgs);
 
 // the kernel, threads and dynamic shared memory of a variant (0: "one",
-// G: staged with G threads per knot); null for a variant not compiled
+// KKT_GROUPS: staged); null for a variant not compiled
 KktKernel kkt_variant(int variant, int* threads, size_t* smem) {
-  *threads = variant == 0 ? 128 : KNOTS * variant;
+  *threads = variant == 0 ? 128 : KNOTS * KKT_GROUPS;
   *smem = variant == 0 ? 0 : STAGED_SMEM;
-  switch (variant) {
-    case 0: return kkt_one_kernel;
-    case 2: return kkt_staged_kernel<2>;
-    case 4: return kkt_staged_kernel<4>;
-    default: return nullptr;
-  }
+  if (variant == 0) return kkt_one_kernel;
+  return variant == KKT_GROUPS ? kkt_staged_kernel<KKT_GROUPS> : nullptr;
 }
 
 int prepare(int variant, KktKernel* kernel, int* threads, size_t* smem) {
@@ -305,7 +302,7 @@ extern "C" int gato_kkt_blocks_per_sm(int variant) {
   return n;
 }
 
-// Launch a variant (0: "one"; 2, 4: staged with G threads per knot). A
+// Launch a variant (0: "one"; KKT_GROUPS: staged). A
 // launch that the card refuses returns its error; nothing falls back.
 extern "C" int gato_kkt_indy7(const gato::KktArgs* args, int variant, void* stream) {
   KktKernel kernel;

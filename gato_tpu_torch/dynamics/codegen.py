@@ -27,8 +27,8 @@ threads (csrc/kkt.cu, phase A of csrc/sqp_iter.cuh):
 The dual RNEA's 2 NQ tangent directions are split into G parts (G in
 KKT_SPLITS), balanced by each part's rendered lines (greedy, largest
 direction first); the split is written into the header as constexpr tables
-(KKT_DIRS_G<G>, KKT_LINES_G<G>). Composed, the stages compute knot_kkt's
-outputs with knot_kkt's own expressions.
+(KKT_DIRS_G<G>, each part's line count in a comment). Composed, the stages
+compute knot_kkt's outputs with knot_kkt's own expressions.
 
 The cost weights `w` (CostParams order), dt and the tracking weight are
 runtime arguments; only the robot constants and limits are folded.
@@ -58,7 +58,7 @@ GENERATED_DIR = os.path.join(os.path.dirname(os.path.dirname(
 # robots whose header is generated and committed
 ROBOTS = ("indy7",)
 # the part counts G of the staged KKT's split of the tangent directions:
-# csrc/kkt.cu's G = 2 (its fastest) and 4, and sqp_iter.cuh's 4 groups
+# csrc/kkt.cu's KKT_GROUPS = 2 and sqp_iter.cuh's 4 groups
 KKT_SPLITS = (2, 4)
 
 _FUNCS = {"sqrt": "gsqrt", "sin": "gsin", "cos": "gcos", "log": "glog",
@@ -361,16 +361,14 @@ def generate(robot: str) -> str:
         "",
         "// The staged KKT's split of the dual RNEA's tangent directions: part P of",
         "// G holds directions KKT_DIRS_G<G>[P] (z < NQ: q_z; z >= NQ: qd_{z - NQ};",
-        "// -1 pads), knot_dual<G, P> computes their dID columns in KKT_LINES_G<G>[P]",
-        "// lines, knot_ab<G, P> their A columns and B's columns c = P mod G.",
-        f"constexpr int KKT_SPLITS[{len(KKT_SPLITS)}] = "
-        f"{{{', '.join(map(str, KKT_SPLITS))}}};"], []
+        "// -1 pads), knot_dual<G, P> computes their dID columns, knot_ab<G, P>",
+        "// their A columns and B's columns c = P mod G."], []
     for g in KKT_SPLITS:
         parts_g, sizes = split_directions(em, cols, g)
         rows = ", ".join("{" + ", ".join(map(str, d + [-1] * (2 * nq - len(d)))) + "}"
                          for d in parts_g)
-        tables += [f"constexpr int KKT_DIRS_G{g}[{g}][NX] = {{{rows}}};",
-                   f"constexpr int KKT_LINES_G{g}[{g}] = {{{', '.join(map(str, sizes))}}};"]
+        tables += [f"// G = {g}: knot_dual's parts run {', '.join(map(str, sizes))} lines.",
+                   f"constexpr int KKT_DIRS_G{g}[{g}][NX] = {{{rows}}};"]
         for p, dirs in enumerate(parts_g):
             funcs.append(_gen_knot_dual(em, cols, dirs, nq, f"knot_dual_g{g}_p{p}"))
             funcs.append(_gen_knot_ab(cols, dirs, [c for c in range(nq) if c % g == p],

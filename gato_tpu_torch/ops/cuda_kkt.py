@@ -19,15 +19,15 @@ from .cuda_sim import check_cuda, require_cuda_robot
 from .kkt import KKTSystem
 from .kkt_fast import setup_kkt_batched
 
-# threads per knot of the staged kernel: the fastest of the compiled splits
-# (KKT_GROUP_CHOICES) in chip_smoke.py's timings at N=32 B=512 and N=256
-# B=64 (PERF.md): at G = 2 a CTA of 32 knots fits 4 to an SM, so a batch
-# of 16,384 knots runs in one wave
+# threads per knot of the staged kernel (csrc/kkt.cu's KKT_GROUPS), one of
+# the header's splits (dynamics/codegen.py::KKT_SPLITS): the fastest of G =
+# 2, 4, 6 on the card (PERF.md): at G = 2 a CTA of 32 knots fits 4 to an
+# SM, so a batch of 16,384 knots runs in one wave
 KKT_GROUPS = 2
-KKT_GROUP_CHOICES = (2, 4)
-# (layout, G): the staged kernel with G threads per knot, or the earlier
-# one-thread kernel ("one", 1), taken only when forced
-VARIANTS = tuple(("staged", g) for g in KKT_GROUP_CHOICES) + (("one", 1),)
+# (layout, G): the staged kernel, the default, or the earlier one-thread
+# kernel ("one", 1), taken only when forced
+DEFAULT = ("staged", KKT_GROUPS)
+VARIANTS = (DEFAULT, ("one", 1))
 
 
 class _KktArgs(ctypes.Structure):
@@ -68,13 +68,12 @@ def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
     ref (B,N,>=3), f_ext (B,6) -> KKTSystem with (B, ...) leading axes.
 
     CUDA kernel: csrc/kkt.cu, replacing gato_tpu/ops/pallas_kkt.py::
-    _kkt_kernel. By default ("staged", KKT_GROUPS) at every N: KKT_GROUPS
-    threads per knot share the generated knot_kkt in stages (a primal, then
-    a part of the dual RNEA's tangent columns each), the outputs staged in
-    shared memory and stored coalesced. `variant` forces another, for
-    measurements only: ("staged", G) for G in KKT_GROUP_CHOICES, or ("one",
-    1), the earlier kernel (one thread per knot runs all of knot_kkt and
-    spills). c_0 = x_0 - x_s is set here."""
+    _kkt_kernel. By default (DEFAULT, at every N) KKT_GROUPS threads per
+    knot share the generated knot_kkt in stages (a primal, then a part of
+    the dual RNEA's tangent columns each), the outputs staged in shared
+    memory and stored coalesced. `variant=("one", 1)` forces the earlier
+    kernel (one thread per knot runs all of knot_kkt and spills), for
+    measurements only. c_0 = x_0 - x_s is set here."""
     if X.device.type == "cpu":
         return setup_kkt_batched(model, cp, X, U, x_s, ref, f_ext, dt,
                                  integrator_type)
@@ -93,7 +92,7 @@ def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
         check_cuda(name, t, shape)
     if ref.shape[-1] < 3:
         raise ValueError("ref needs the EE xyz in its first 3 columns")
-    variant = variant or ("staged", KKT_GROUPS)
+    variant = variant or DEFAULT
     code = _variant_code(variant)
 
     def empty(*shape):

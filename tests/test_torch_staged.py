@@ -261,20 +261,21 @@ def test_iteration_variant_takes_shared_memory_where_it_fits():
 
 
 def test_staged_kkt_variants():
-    """The staged KKT's variants: the kkt kernel's G values are the splits
-    that the generated header carries (KKT_DIRS_G<G>); phase A of the
-    iteration kernels is staged exactly where the shared layout has G = 4
-    groups, one per part of the header's 4-way split (every N up to 64);
-    a variant that is not compiled raises before any launch."""
-    assert cuda_kkt.KKT_GROUP_CHOICES == codegen.KKT_SPLITS
-    assert cuda_kkt.KKT_GROUPS in cuda_kkt.KKT_GROUP_CHOICES
+    """The staged KKT's variants: the kkt kernel's G is one of the splits
+    that the generated header carries (KKT_DIRS_G<G>), as is the iteration
+    kernels' 4; phase A of the iteration kernels is staged exactly where
+    the shared layout has G = 4 groups, one per part of the header's 4-way
+    split (every N up to 64); a variant that is not compiled raises before
+    any launch."""
+    assert cuda_kkt.KKT_GROUPS in codegen.KKT_SPLITS and SHARED_GROUPS in codegen.KKT_SPLITS
+    assert cuda_kkt.VARIANTS == (("staged", cuda_kkt.KKT_GROUPS), ("one", 1))
     with open(codegen.header_path("indy7")) as f:
         header = f.read()
     for g in codegen.KKT_SPLITS:
         assert f"constexpr int KKT_DIRS_G{g}[{g}][NX]" in header
     assert cuda_kkt._variant_code(("one", 1)) == 0
-    assert cuda_kkt._variant_code(("staged", 4)) == 4
-    for bad in (("staged", 6), ("one", 4), ("global", 1)):
+    assert cuda_kkt._variant_code(("staged", 2)) == 2
+    for bad in (("staged", 4), ("staged", 6), ("one", 4), ("global", 1)):
         with pytest.raises(ValueError, match="not compiled"):
             cuda_kkt._variant_code(bad)
     for N in range(2, 129):
