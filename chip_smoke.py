@@ -36,6 +36,29 @@ back to its earlier variant (the one-thread phase A, the one-thread kkt,
 pcg's global variant), and the routes' cycles are timed once more before
 any CUDA graph is captured (`[harness]`).
 
+The rk4 kernel comes in two variants: "one" (the default, the earlier kernel:
+a thread a plant) and "crba" (forced only: a CTA of two warps per plant,
+the mass matrix's CRBA on one lane beside the RNEA bias on another, the
+solve on every thread); the merit kernel in two: "warps" (the default:
+four (problem, alpha) pairs a CTA, a warp each) and "one". Each variant
+prints a `[variant]` line (registers, spills; merit: CTAs per SM and
+rounds), is held against its plain version (rk4 at the plant's B=1, merit
+at N=32 B=512 and N=256 B=64) and timed in two rounds (`[rk4]`, `[merit]`
+lines); the default route runs in turns with rk4 forced to "crba", the
+"iter" and staged routes with merit forced back; the N=32 tracking gate is
+also read (not held) with rk4 forced to "crba" from its own warm-up, the
+reason it is not the default (PERF.md section 6); rk4's bound at B=1 is
+the latency of its chain of dependent operations (`[bound] rk4`,
+`bound_by: "latency"` in the kernels line). ROADMAP Queue 3's items: the
+N=256 pcg witness (`[witness]`: the kernel, the card's and the CPU's
+float32 plain versions and float64 on the default route's system and on
+one assembled in float64, held on the latter) and the N=256 route's
+tracking against the plain route's over the same cycles. Instead of all
+that, `--save-capped PATH` saves the N=64 cap lanes' Schur system
+(save_capped_schur, tests/test_torch_pcg_capped.py), `--tracking-spread`
+reads the N=32 tracking gate from nearby warm-ups, and `--fusion-probe`
+compares rk4's variants built with and without multiply-add fusion.
+
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ (one nvcc each, all
 at once), holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
@@ -51,6 +74,9 @@ lane 0's fig-8 tracking error on every N=32 route, and computes each
 kernel's bound from this run's inputs.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --save-capped n64_capped_schur.npz
+    python3 chip_smoke.py --tracking-spread
+    python3 chip_smoke.py --fusion-probe
 
 Needs one CUDA GPU; fails without one. Every failed check raises. The last
 two lines of standard output are the kernels' JSON record and
@@ -58,11 +84,14 @@ two lines of standard output are the kernels' JSON record and
 line before them.
 """
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,7 +105,8 @@ from gato_tpu_torch.api.common import figure8, rk4_step
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
-from gato_tpu_torch.ops import cuda_iter, cuda_kkt, cuda_pcg
+from gato_tpu_torch.dynamics.codegen import header_path, header_stats
+from gato_tpu_torch.ops import cuda_iter, cuda_kkt, cuda_merit, cuda_pcg, cuda_sim
 from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch.ops.cuda_iter import (iteration_variant, phase_a_default,
                                           smem_bytes, sqp_iter_core_cuda,
@@ -116,9 +146,13 @@ N_LONG, B_LONG, K_LONG = 256, 64, 10
 VARIANTS = (("global", 1, "one"), ("shared", 1, "one"), ("shared", 2, "one"),
             ("shared", 4, "one"), ("shared", 4, "staged"))
 KKT_DEFAULT = cuda_kkt.DEFAULT
+MERIT_DEFAULT = cuda_merit.DEFAULT
 N_WIDE, CHECK_HORIZONS = 64, (64, 128)
 # where the pcg kernel's shared variant meets the 2-CTA cluster (B=512)
 PCG_EDGE_HORIZONS = (64, 80, 95)
+# the N_WIDE cap lanes saved by --save-capped: each lane's Schur system is
+# about 150 KB in float32, so six stay under 1 MB
+CAPPED_LANES = 6
 RK4_RTOL = 1e-5
 # bsqp_iter against its plain version (float32, identical input): the
 # fraction of lanes with the same step and with a PCG count within
@@ -133,6 +167,9 @@ PCG_SLACK, F64_FACTOR = 3, 2.0
 # SHARE_FLOOR, a normwise limit never above NOISE_CAP
 SHARE_FLOOR, NOISE_CAP = 0.8, 5 * TRAJ_RTOL
 LIMIT_NOTE = {False: "", True: "; the limits: float32's own noise where larger, noise_limits"}
+# lane 0's mean EE tracking error over a route's cycles: below TRACK_MAX_M
+# on every N=32 route, and within TRACK_REL of the plain route's from the
+# same state (tracks_like_plain), on every route at N=32 and N=256
 TRACK_MAX_M, TRACK_REL = 0.1, 0.10
 # kkt: each KKTSystem tensor within KKT_RTOL of its largest |value|
 # (identical float32 inputs; only the order of operations differs).
@@ -154,6 +191,13 @@ DZ_OPS, MATVEC_OPS = 550, 3 * 144 * 2
 PCG_SETUP_OPS = 2 * MATVEC_OPS + 12 + 24
 PCG_ITER_OPS = 2 * MATVEC_OPS + 2 * 24 + 3 * 24
 RK4_SUBSTEP_AXPY_OPS = 156  # csrc/rk4.cu: the stage states and the update
+# rk4's latency bound at B = 1 (the main path): each of the 4 x 2 stages
+# runs one forward dynamics call (fd's depth in the one variant; the deeper
+# of fd_crba and fd_bias, then fd_solve, in the crba variant: the depths
+# the generator writes into csrc/generated/indy7.cuh) and the stage's
+# point q + c k (a product, then a sum), every operation one FP32 FMA
+# latency at the SM's maximum clock
+RK4_SUBSTEPS, RK4_AXPY_DEPTH, FMA_CYCLES = 2, 2, 4
 CANDIDATE_OPS = 60  # a merit knot's candidate x, x_next, u: 30 multiply-adds
 WRAPPERS = dict(bsqp_iter=sqp_iter_cuda, rk4=rk4_step_batched,
                 iter=sqp_iter_core_cuda, kkt=setup_kkt_batched_cuda,
@@ -234,19 +278,31 @@ def bound(ops, n_bytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def generated_op_counts():
-    """Operations of each generated per-knot function in
+def generated_stats():
+    """{function: (operations, dependency depth)} of the generated
+    functions, as dynamics/codegen.py writes them above each function of
     csrc/generated/indy7.cuh: every binary + - * / and every sqrt, sin,
-    cos, log, abs and max call counts as one."""
-    with open(os.path.join(_build.CSRC_DIR, "generated", "indy7.cuh")) as f:
-        src = f.read()
-    counts = {}
-    for name in ("fd", "knot_kkt", "knot_merit"):
-        body = re.search(r"inline void " + name + r"\(.*?\{\n(.*?)\n\}", src,
-                         re.S).group(1)
-        counts[name] = (sum(body.count(t) for t in (" + ", " - ", " * ", " / "))
-                        + len(re.findall(r"\bg(?:sqrt|sin|cos|log|abs|max)\(", body)))
-    return counts
+    cos, log, abs and max call counts as one operation; a negation, which
+    compiles into its user's operand, counts as none and adds no link."""
+    with open(header_path("indy7")) as f:
+        return header_stats(f.read())
+
+
+def sm_max_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def rk4_latency_bound(stats, mhz, variant):
+    """(ms, depth of one stage): the chain of dependent operations of the
+    main path's plant step (B = 1, RK4_SUBSTEPS substeps) in `variant`,
+    FMA_CYCLES a link at `mhz`."""
+    fd_depth = (stats["fd"][1] if variant == "one" else
+                max(stats["fd_crba"][1], stats["fd_bias"][1]) + stats["fd_solve"][1])
+    depth = fd_depth + RK4_AXPY_DEPTH
+    return 4 * RK4_SUBSTEPS * depth * FMA_CYCLES / (mhz * 1e3), depth
 
 
 def taken_variant(n):
@@ -451,8 +507,8 @@ class Fig8:
         Xo[:, 0] = x_s
         return (Xo, Uo, lamo, x_s), pcg, step
 
-    def steady_state(self):
-        """bench.py:54-130: 6 warm-up cycles from the 'ready' start with a
+    def steady_state(self, warmup=WARMUP):
+        """bench.py:54-130: `warmup` (6) cycles from the 'ready' start with a
         10-substep RK4 plant, on the default route."""
         x0 = np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)])
         x0 = torch.tensor(x0, dtype=torch.float32, device=self.dev)
@@ -460,12 +516,12 @@ class Fig8:
         U = torch.zeros(self.B, self.N - 1, 6, device=self.dev)
         lam = torch.zeros(self.B, self.N, 12, device=self.dev)
         x_s = x0.expand(self.B, 12).contiguous()
-        for step in range(WARMUP):
+        for step in range(warmup):
             X, U, lam, _, _ = self.solve_kernel(X, U, lam, x_s, self.ref(step))
             x_s = self.plant_kernel(x_s[0], U[0, 0], 10)[None].expand(
                 self.B, 12).contiguous()
             X[:, 0] = x_s
-        return (X, U, lam, x_s), WARMUP  # bench.py: cycles start at step + 1
+        return (X, U, lam, x_s), warmup  # bench.py: cycles start at step + 1
 
     def run(self, state, i0, solve, plant, k=K):
         """k closed-loop cycles; per-cycle CUDA-event ms, lane 0's EE
@@ -503,6 +559,24 @@ def work_trace(pcg, step):
                 steps_accepted_frac=round(float((step[:8] > 0).mean()), 3))
 
 
+def iteration_arms(f, state, i):
+    """One SQP iteration on the identical steady-state input: (problem,
+    state, the kernel's (out, stats), the float32 plain version's, the
+    float64 plain version's)."""
+    X, U, lam, x_s = state
+    zero = torch.zeros(f.B, device=f.dev)
+    prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
+    s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
+    kernel = sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings, seeded=False)
+    plain = sqp_iter_reference(f.model, f.cp, prob, s0, f.settings, seeded=False)
+    m64 = load_robot("indy7", torch.float64, f.dev)
+    p64 = Problem(*(t.double() for t in prob[:5]), DT)
+    f64 = sqp_iter_reference(m64, f.cp, p64, IterState(*(t.double() for t in s0)),
+                             f.settings, seeded=False)
+    torch.cuda.synchronize()
+    return prob, s0, kernel, plain, f64
+
+
 def compare_iteration(f, state, i, noise_floor=False):
     """One SQP iteration, kernel (the variant that f.N takes) against its
     plain version (and both against the plain version in float64), on the
@@ -519,18 +593,7 @@ def compare_iteration(f, state, i, noise_floor=False):
     shared layout. The other limits are the fixed ones; with noise_floor
     (the long horizons) they give way to float32's own noise where that is
     larger (noise_limits)."""
-    X, U, lam, x_s = state
-    m = f.model
-    zero = torch.zeros(f.B, device=f.dev)
-    prob = Problem(x_s, f.ref(i), f.f_ext, f.hp.mu, f.hp.pcg_tol, DT)
-    s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
-    ko, ks = sqp_iter_cuda(m, f.cp, prob, s0, f.settings, seeded=False)
-    ro, rs = sqp_iter_reference(m, f.cp, prob, s0, f.settings, seeded=False)
-    m64 = load_robot("indy7", torch.float64, f.dev)
-    p64 = Problem(*(t.double() for t in prob[:5]), DT)
-    o64, s64 = sqp_iter_reference(m64, f.cp, p64, IterState(*(t.double() for t in s0)),
-                                  f.settings, seeded=False)
-    torch.cuda.synchronize()
+    prob, s0, (ko, ks), (ro, rs), (o64, s64) = iteration_arms(f, state, i)
     for t in (ko.X, ko.U, ko.lam, ks.ls_merit):
         if not torch.isfinite(t).all():
             raise RuntimeError("bsqp_iter kernel output is not finite")
@@ -613,18 +676,36 @@ def compare_iteration(f, state, i, noise_floor=False):
 
 
 def compare_rk4(f, state):
-    """The plant step at the main path's shape (B = 1, 2 substeps)."""
+    """The plant step at the main path's shape (B = 1, 2 substeps), in
+    every variant of the kernel (the default first). Returns (x, u, the
+    default's max abs error)."""
     x, u = state[3][:1].contiguous(), state[1][:1, 0].contiguous()
-    k = rk4_step_batched(f.model, x, u, DT, None, 2)
-    p = rk4_plain(f.model, x, u, DT, None, 2)
-    torch.cuda.synchronize()
-    err = (k - p).abs().max().item()
+    p = rk4_plain(f.model, x, u, DT, None, RK4_SUBSTEPS)
     tol = RK4_RTOL * p.abs().max().item()
-    log(f"[compare] rk4 kernel vs rk4_channels (B=1, 2 substeps): max abs err "
-        f"{err:.3e}, tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
-    if not (torch.isfinite(k).all() and err <= tol):
-        raise RuntimeError("rk4 kernel disagrees with its plain version")
-    return x, u, err
+    errs = {}
+    for v in (cuda_sim.DEFAULT,) + tuple(v for v in cuda_sim.VARIANTS if v != cuda_sim.DEFAULT):
+        k = rk4_step_batched(f.model, x, u, DT, None, RK4_SUBSTEPS, variant=v)
+        torch.cuda.synchronize()
+        errs[v] = (k - p).abs().max().item()
+        log(f"[compare] rk4 kernel ({v}{', the default' if v == cuda_sim.DEFAULT else ''}) vs "
+            f"rk4_channels (B=1, {RK4_SUBSTEPS} substeps): max abs err {errs[v]:.3e}, "
+            f"tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
+        if not (torch.isfinite(k).all() and errs[v] <= tol):
+            raise RuntimeError(f"rk4 kernel ({v}) disagrees with its plain version")
+    # crba runs fd's own expressions, split over two warps: against the
+    # one-thread kernel it differs only where ptxas fuses a multiply-add in
+    # one kernel and not in the other, which depends on the code around it
+    # (PERF.md section 6; reported)
+    g = torch.Generator().manual_seed(3)
+    for b, (xb, ub) in ((1, (x, u)), (B, (torch.rand(B, 12, generator=g).to(f.dev) * 2 - 1,
+                                          torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5))):
+        outs = [rk4_step_batched(f.model, xb, ub, DT, None, RK4_SUBSTEPS, variant=v)
+                for v in ("crba", "one")]
+        torch.cuda.synchronize()
+        log(f"[compare] rk4 crba against one (B={b}{', the main path input' if b == 1 else ''}): "
+            f"equal bit for bit {torch.equal(*outs)}, max abs difference "
+            f"{(outs[0] - outs[1]).abs().max().item():.3e} (reported)")
+    return x, u, errs[cuda_sim.DEFAULT]
 
 
 def noise_limits(steps, counts, traj):
@@ -807,25 +888,15 @@ def report_kkt_variants(sms):
 
 
 def time_kkt(f, X, U, x_s, ref, card, reps):
-    """Device ms per launch (graph_ms) of kkt in every variant on one
-    input: two rounds in opposite orders, their mean; the fastest beside
-    the default; and each variant's ms per wrapper call back to back
-    (CUDA events), where the host's time to enqueue a call shows. Returns
-    {variant: ms}."""
-    rounds, wrapped = {v: [] for v in KKT_VARIANTS}, {}
-    for order in (KKT_VARIANTS, KKT_VARIANTS[::-1]):
-        for v in order:
-            call = lambda: setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext,
-                                                  DT, variant=v)
-            rounds[v].append(graph_ms(call, reps))
-            wrapped.setdefault(v, []).append(event_ms(call, reps))
-    ms = {v: statistics.mean(t) for v, t in rounds.items()}
+    """Device ms per launch of kkt in every variant on one input
+    (time_in_rounds: two rounds in opposite orders, and ms per wrapper
+    call, where the host's time to enqueue a call shows); the fastest
+    beside the default. Returns {variant: device ms}."""
+    ms = {v: t[0] for v, t in time_in_rounds(
+        KKT_VARIANTS, lambda v: setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext,
+                                                       DT, variant=v),
+        reps, card, f"kkt N={f.N} B={f.B}", KKT_DEFAULT).items()}
     fastest = min(ms, key=ms.get)
-    for v in KKT_VARIANTS:
-        log(f"[kkt] {card}: N={f.N} B={f.B} {v[0]} G={v[1]}"
-            f"{' (the default)' if v == KKT_DEFAULT else ''}: {ms[v]:.4f} ms per launch "
-            f"on the device; rounds {[round(t, 4) for t in rounds[v]]}; per wrapper call "
-            f"{statistics.mean(wrapped[v]):.4f} ms")
     log(f"[kkt] N={f.N} B={f.B}: fastest {fastest} {ms[fastest]:.4f} ms; the default "
         f"{KKT_DEFAULT} {ms[KKT_DEFAULT]:.4f} ms, the one-thread kernel "
         f"{ms[('one', 1)]:.4f} ms ({ms[('one', 1)] / ms[KKT_DEFAULT]:.2f}x)")
@@ -1012,20 +1083,320 @@ def pcg_same_bits_as_global(system, skip):
 
 
 def compare_merit(f, X, U, dzx, dzu, x_s, ref):
-    """The merit kernel against merit_alphas_batched at alpha in {0, 2^-j}."""
+    """The merit kernel, every variant (the default first), against
+    merit_alphas_batched at alpha in {0, 2^-j}. Returns (the arguments, the
+    default's max abs error)."""
     alphas = [0.0] + [0.5 ** j for j in range(8)]
     args = (X, U, dzx, dzu, x_s, ref, f.f_ext, f.hp.mu, DT, alphas)
-    mk = merit_alphas_batched_cuda(f.model, f.cp, *args)
     mp = merit_alphas_batched(f.model, f.cp, *args)
+    errs = {}
+    for v in (MERIT_DEFAULT,) + tuple(v for v in cuda_merit.VARIANTS if v != MERIT_DEFAULT):
+        mk = merit_alphas_batched_cuda(f.model, f.cp, *args, variant=v)
+        torch.cuda.synchronize()
+        rel = ((mk.double() - mp.double()).abs() / mp.double().abs()).max().item()
+        errs[v] = (mk - mp).abs().max().item()
+        log(f"[compare] merit kernel ({v}"
+            f"{', the default' if v == MERIT_DEFAULT else ''}) vs merit_alphas_batched "
+            f"(N={f.N}, B={f.B}, {len(alphas)} alphas): max rel err {rel:.3e} (tolerance "
+            f"{MERIT_ALPHA_RTOL}), max abs err {errs[v]:.3e}")
+        if not (torch.isfinite(mk).all() and rel <= MERIT_ALPHA_RTOL):
+            raise RuntimeError(f"merit kernel ({v}) disagrees with its plain version")
+    outs = [merit_alphas_batched_cuda(f.model, f.cp, *args, variant=v)
+            for v in cuda_merit.VARIANTS]
+    log(f"[compare] merit {' against '.join(cuda_merit.VARIANTS)} (N={f.N}, B={f.B}): equal "
+        f"bit for bit {torch.equal(*outs)} (reported)")
+    return args, errs[MERIT_DEFAULT]
+
+
+def sass_counts(name):
+    """{kernel function: SASS instructions} of csrc/<name>.cu's library, by
+    cuobjdump (the instructions a thread runs, for straight-line kernels),
+    or {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[fn] += 1
+    return counts
+
+
+def report_rk4_merit_variants(sms):
+    """A [variant] line for each rk4 and merit variant: threads a CTA, CTAs
+    per SM and the waves of the main shapes (merit: N=32 B=512, 9 alphas),
+    ptxas' registers and spills. No rk4 variant and not the merit default
+    may spill."""
+    def key(m):
+        return dict(split="crba", one="one")[m.group(1)]
+
+    pattern = r"rk4_(split|one)_kernel"
+    px = ptxas_lines("rk4", pattern, key)
+    sass = {key(re.search(pattern, fn)): n for fn, n in sass_counts("rk4").items()
+            if re.search(pattern, fn)}
+    for v in cuda_sim.VARIANTS:
+        log(f"[variant] rk4 {v}{' (the default)' if v == cuda_sim.DEFAULT else ''}: "
+            f"{128 if v == 'one' else 64} threads a CTA, "
+            f"{'a thread a plant' if v == 'one' else 'one CTA a plant'}, "
+            f"{sass.get(v, 'not counted')} SASS instructions; ptxas: {px[v]}")
+    for v in cuda_sim.VARIANTS:
+        if spill_bytes(px[v]) != 0:
+            raise RuntimeError(f"the rk4 kernel {v} spills: {px[v]}")
+    pm = ptxas_lines("merit", r"merit_(warps|one)_kernel", lambda m: m.group(1))
+    sass = {re.search(r"merit_(warps|one)_kernel", fn).group(1): n
+            for fn, n in sass_counts("merit").items() if re.search(r"merit_(warps|one)_kernel", fn)}
+    pairs = B * (BSQPSettings(N=N).num_alphas + 1)
+    for v in cuda_merit.VARIANTS:
+        per_sm = cuda_merit.blocks_per_sm(v)
+        warps = 1 if v == "one" else cuda_merit.WARPS_PER_CTA
+        ctas = -(-pairs // warps)
+        log(f"[variant] merit {v}{' (the default)' if v == MERIT_DEFAULT else ''}: "
+            f"{32 * warps} threads a CTA at N={N}, {per_sm} CTAs per SM, {ctas} CTAs at "
+            f"N={N} B={B}: {ctas / (per_sm * sms):.2f} rounds on {sms} SMs, "
+            f"{sass.get(v, 'not counted')} SASS instructions (a thread runs them once a "
+            f"knot); ptxas: {pm[v]}")
+    if spill_bytes(pm[MERIT_DEFAULT]) != 0:
+        raise RuntimeError(f"the merit kernel {MERIT_DEFAULT} spills: {pm[MERIT_DEFAULT]}")
+
+
+def time_in_rounds(variants, call, reps, card, tag, default):
+    """Device ms per launch (graph_ms) of each variant, two rounds in
+    opposite orders, their mean; and ms per wrapper call back to back (CUDA
+    events). Logs a line per variant; returns {variant: (device, wrapper)}."""
+    rounds, wrapped = {v: [] for v in variants}, {v: [] for v in variants}
+    for order in (variants, variants[::-1]):
+        for v in order:
+            rounds[v].append(graph_ms(lambda: call(v), reps))
+            wrapped[v].append(event_ms(lambda: call(v), reps))
+    ms = {v: (statistics.mean(rounds[v]), statistics.mean(wrapped[v])) for v in variants}
+    for v in variants:
+        log(f"[{tag}] {card}: {v}{' (the default)' if v == default else ''}: "
+            f"{ms[v][0]:.5f} ms per launch on the device; rounds "
+            f"{[round(t, 5) for t in rounds[v]]}; per wrapper call {ms[v][1]:.5f} ms")
+    return ms
+
+
+SCHUR_FIELDS = ("S_main", "S_lower", "P_main", "P_lower", "gamma")
+
+
+def save_capped_schur(dev, path):
+    """ROADMAP Queue 3's N=64 B=512 cap lanes: on compare_core's input at
+    N_WIDE (the steady state, cycle i0 - 1), the Schur system that the card
+    assembles in float32 (setup_kkt_batched and build_schur, as
+    sqp_iter_core_reference assembles it), the float32 PCG counts on it
+    (the plain version and the pcg kernel) and the float64 plain PCG's on
+    the same float32 system; the first CAPPED_LANES lanes where the float32
+    plain PCG reaches max_pcg_iters are written to `path` (np.savez_compressed:
+    the system, lam0, the tolerance, the counts and each lane's KKT inputs),
+    for tests/test_torch_pcg_capped.py to run the JAX package's pcg_channels
+    on."""
+    fc = Fig8(dev, N_WIDE, B)
+    (X, U, lam, x_s), i0 = fc.steady_state()
+    ref = fc.ref(i0 - 1)
+    kkt = setup_kkt_batched(fc.model, fc.cp, X, U, x_s, ref, fc.f_ext, DT)
+    sch = build_schur(kkt, fc.hp.rho, 6)
+    system = (*(getattr(sch, n) for n in SCHUR_FIELDS), lam, fc.hp.pcg_tol)
+    mpcg = P["max_pcg_iters"]
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    _, ip = pcg_solve_batched(*system, mpcg, skip)
+    _, ik = pcg_solve_batched_cuda(*system, mpcg, skip)
+    _, i64 = pcg_solve_batched(*(t.double() for t in system), mpcg, skip)
+    core = sqp_iter_core_cuda(fc.model, fc.cp, X, U, x_s, ref, fc.f_ext, lam,
+                              fc.hp.rho, fc.hp.pcg_tol, skip, DT, mpcg)
     torch.cuda.synchronize()
-    rel = ((mk.double() - mp.double()).abs() / mp.double().abs()).max().item()
-    err = (mk - mp).abs().max().item()
-    log(f"[compare] merit kernel vs merit_alphas_batched (N={f.N}, B={f.B}, "
-        f"{len(alphas)} alphas): max rel err {rel:.3e} (tolerance "
-        f"{MERIT_ALPHA_RTOL}), max abs err {err:.3e}")
-    if not (torch.isfinite(mk).all() and rel <= MERIT_ALPHA_RTOL):
-        raise RuntimeError("merit kernel disagrees with its plain version")
-    return args, err
+    finite = torch.stack([torch.isfinite(t).flatten(1).all(1) for t in system[:5]], 1)
+    # the cost blocks Q + rho I whose float32 Cholesky fails on the card
+    Qr = kkt.Q[..., :6, :6] + fc.hp.rho[:, None, None, None] * torch.eye(6, device=dev)
+    failed = torch.nonzero(torch.linalg.cholesky_ex(Qr)[1]).tolist()
+    core_finite = torch.isfinite(core[0]).flatten(1).all(1)
+    capped = torch.nonzero(ip >= mpcg).flatten()
+    lanes = capped[:CAPPED_LANES]
+    log(f"[capped] N={N_WIDE} B={B}: float32 plain PCG at the cap of {mpcg} on "
+        f"{capped.numel()} lanes, the pcg kernel on {int((ik >= mpcg).sum())}, float64 "
+        f"PCG on the same float32 system on {int((i64 >= mpcg).sum())}; the iter "
+        f"kernel's dZX not finite on {int((~core_finite).sum())} lanes; a Schur "
+        f"block not finite on {int((~finite.all(1)).sum())} lanes; the float32 Cholesky "
+        f"of Q + rho I fails at {len(failed)} (lane, knot), knots "
+        f"{sorted({k for _, k in failed})}; lanes saved "
+        f"{lanes.tolist()}: plain32 counts {ip[lanes].tolist()}, kernel "
+        f"{ik[lanes].tolist()}, float64 {i64[lanes].tolist()}, iter kernel finite "
+        f"{core_finite[lanes].tolist()}")
+    if capped.numel() == 0:
+        raise RuntimeError(f"no float32 PCG lane at the cap at N={N_WIDE}: nothing to save")
+    sel = lambda t: t[lanes].cpu().numpy()
+    np.savez_compressed(
+        path, lanes=lanes.cpu().numpy(), max_pcg_iters=mpcg,
+        **{n: sel(t) for n, t in zip(SCHUR_FIELDS + ("lam0", "pcg_tol"), system)},
+        plain32_iters=sel(ip), kernel_iters=sel(ik), float64_iters=sel(i64),
+        X=sel(X), U=sel(U), x_s=sel(x_s), ref=sel(ref), f_ext=sel(fc.f_ext),
+        rho=sel(fc.hp.rho), card=card_line())
+    log(f"[capped] wrote {path} ({os.path.getsize(path)} bytes)")
+
+
+def f64_assembled_system(f, X, U, x_s, ref, lam0):
+    """The Schur system assembled in float64 (setup_kkt_batched and
+    build_schur on the float64 model) from a float32 state, rounded to
+    float32 once: a system that no float32 assembly's rounding shaped."""
+    m64 = load_robot("indy7", torch.float64, f.dev)
+    kkt = setup_kkt_batched(m64, f.cp, X.double(), U.double(), x_s.double(),
+                            ref.double(), f.f_ext.double(), DT)
+    sch = build_schur(kkt, f.hp.rho.double(), 6)
+    return (*(getattr(sch, n).float() for n in SCHUR_FIELDS), lam0, f.hp.pcg_tol)
+
+
+def pcg_witness(f, system, tag, held):
+    """ROADMAP Queue 3's N=256 witness: the pcg kernel (the variant N takes)
+    against the float32 plain version on the card, beside a third float32
+    arm that no kernel touches, the same plain version on the CPU (another
+    summation order), and all three against the float64 plain version, on
+    one assembled system. Held, with `held`: identical counts on
+    PCG_SAME_MIN of the lanes; lam no farther (normwise) from the card's
+    plain version than the CPU's plain version lies from it (at least
+    LAM_RTOL); and no farther from float64 than the farther plain arm."""
+    mpcg = P["max_pcg_iters"]
+    skip = torch.zeros(f.B, dtype=torch.bool, device=f.dev)
+    lk, ik = pcg_solve_batched_cuda(*system, mpcg, skip)
+    lp, ip = pcg_solve_batched(*system, mpcg, skip)
+    lc, ic = pcg_solve_batched(*(t.cpu() for t in system), mpcg, skip.cpu())
+    lc, ic = lc.to(f.dev), ic.to(f.dev)
+    l64, _ = pcg_solve_batched(*(t.double() for t in system), mpcg, skip)
+    torch.cuda.synchronize()
+    same, same_c = ik == ip, ic == ip
+    res = dict(same_frac=same.double().mean().item(), cpu_same_frac=same_c.double().mean().item(),
+               kernel_plain=normwise(lk[same], lp[same]), cpu_plain=normwise(lc[same_c], lp[same_c]),
+               kernel_f64=normwise(lk, l64), plain_f64=normwise(lp, l64),
+               cpu_f64=normwise(lc, l64))
+    ok = (res["same_frac"] >= PCG_SAME_MIN
+          and res["kernel_plain"] <= max(LAM_RTOL, res["cpu_plain"])
+          and res["kernel_f64"] <= max(res["plain_f64"], res["cpu_f64"]))
+    log(f"[witness] pcg at N={f.N} B={f.B}, {tag} ({pcg_variant(f.N)}): identical counts "
+        f"with the card's plain32 on {res['same_frac']:.4f} of lanes (the CPU's plain32 "
+        f"{res['cpu_same_frac']:.4f}; tolerance >= {PCG_SAME_MIN}); lam normwise from the card's "
+        f"plain32: kernel {res['kernel_plain']:.3e}, the CPU's plain32 {res['cpu_plain']:.3e}; "
+        f"from float64: kernel {res['kernel_f64']:.3e}, card plain32 {res['plain_f64']:.3e}, "
+        f"CPU plain32 {res['cpu_f64']:.3e}; the kernel within the plain arms' spread: {ok}"
+        f"{'' if held else ' (reported, not held)'}")
+    if held and not ok:
+        raise RuntimeError(f"pcg witness ({tag}) failed: {res}")
+    return res
+
+
+def tracks_like_plain(err_kernel, err_plain):
+    """A kernel route's lane-0 tracking error within TRACK_REL of the plain
+    route's, either way."""
+    return abs(err_kernel - err_plain) <= TRACK_REL * err_plain
+
+
+def tracking_spread(dev, card, warmups=(5, 6, 7, 8), variants=cuda_sim.VARIANTS):
+    """The N=32 tracking gate and bsqp_iter's step check on nearby inputs:
+    for each warm-up length and each rk4 variant (the plant of the warm-up
+    and of the kernel route), lane 0's mean EE error over K cycles on the
+    default route and on the plain route from the same state, the gate's
+    rule (tracks_like_plain), and the share of lanes with identical
+    line-search steps, kernel against float32 plain, kernel against
+    float64, float32 plain against float64 (compare_iteration's input at
+    each state). Reported, nothing held."""
+    for w in warmups:
+        for v in variants:
+            with forced(cuda_sim, "DEFAULT", v):
+                f = Fig8(dev)
+                state, i0 = f.steady_state(w)
+                ek = f.run(state, i0, f.solve_kernel, f.plant_kernel)[2].mean().item()
+            ep = f.run(state, i0, f.solve_plain, f.plant_plain)[2].mean().item()
+            _, _, (_, ks), (_, rs), (_, s64) = iteration_arms(f, state, i0 - 1)
+            same = [(a.double() == b.double()).double().mean().item()
+                    for a, b in ((ks.ls_step, rs.ls_step), (ks.ls_step, s64.ls_step),
+                                 (rs.ls_step, s64.ls_step))]
+            log(f"[spread] {card}: warm-up {w}, rk4 {v}: lane 0 mean EE error kernel route "
+                f"{ek:.4f} m, plain route {ep:.4f} m ({(ek - ep) / ep:+.1%}); within "
+                f"{TRACK_REL:.0%} {tracks_like_plain(ek, ep)}; identical steps kernel/"
+                f"plain32 {same[0]:.4f}, kernel/float64 {same[1]:.4f}, plain32/float64 "
+                f"{same[2]:.4f}")
+
+
+# the builds of csrc/rk4.cu that fusion_probe compares: the kernels' own
+# flags, with ptxas' multiply-add fusion off, with every fusion off
+FUSION_FLAGS = {"as built": (), "ptxas fusion off": ("-Xptxas", "-fmad=false"),
+                "fusion off": ("-fmad=false",)}
+
+
+def fusion_probe(card, n=65536):
+    """Why rk4's crba and one differ: csrc/rk4.cu built with each of
+    FUSION_FLAGS (one nvcc each, at once), both variants on the same n
+    random plants (RK4_SUBSTEPS substeps of DT, without and with a wrench);
+    the share of plants whose output differs in any bit, crba against one
+    in the same build, and each build's one against the kernels' own.
+    Reported, nothing held."""
+    src = os.path.join(_build.CSRC_DIR, "rk4.cu")
+    procs = {}
+    for i, (tag, extra) in enumerate(FUSION_FLAGS.items()):
+        out = os.path.join(_build.BUILD_DIR, f"librk4-fusion{i}-{os.getpid()}.so")
+        procs[tag] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", out,
+                                        src], stdout=subprocess.DEVNULL,
+                                       stderr=subprocess.STDOUT), out)
+    libs = {}
+    for tag, (proc, out) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for csrc/rk4.cu ({tag})")
+        libs[tag] = ctypes.CDLL(out)
+        os.remove(out)
+    g = torch.Generator().manual_seed(0)
+    q = (torch.rand(n, 6, generator=g) * 2 - 1) * torch.pi
+    x = torch.cat([q, torch.randn(n, 6, generator=g) * 1.5], 1).cuda().contiguous()
+    u = (torch.randn(n, 6, generator=g) * 30).cuda().contiguous()
+    fe = (torch.randn(n, 6, generator=g) * 5).cuda().contiguous()
+
+    def step(lib, variant, f):
+        out = torch.empty_like(x)
+        fn = lib.gato_rk4_indy7
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), u.data_ptr(), None if f is None else f.data_ptr(),
+                 out.data_ptr(), n, DT / RK4_SUBSTEPS, RK4_SUBSTEPS, cuda_sim.CODES[variant],
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"rk4 ({variant}) launch failed: CUDA error {err}")
+        return out
+
+    def differ(a, b):
+        return f"{(a != b).any(1).double().mean().item():.4f}"
+
+    parts = []
+    for tag, lib in libs.items():
+        for wrench, f in (("no wrench", None), ("a wrench", fe)):
+            one = step(lib, "one", f)
+            parts.append(f"{tag}, {wrench}: crba against one {differ(step(lib, 'crba', f), one)}, "
+                         f"one against the kernels' own one "
+                         f"{differ(one, step(libs['as built'], 'one', f))}")
+    log(f"[fusion] {card}: share of {n} random plants whose rk4 step differs in any bit "
+        f"({RK4_SUBSTEPS} substeps): " + "; ".join(parts))
+
+
+def long_tracking(fl, state, i0, errs_kernel):
+    """ROADMAP Queue 3's N=256 tracking: the plain route over the same
+    K_LONG cycles from the same state as the kernel route's run; lane 0's
+    mean EE error of the kernel route within TRACK_REL of the plain
+    route's, either way (tracks_like_plain)."""
+    t0 = time.perf_counter()
+    errs_plain = fl.run(state, i0, fl.solve_plain, fl.plant_plain, K_LONG)[2]
+    secs = time.perf_counter() - t0
+    err_kernel, err_plain = errs_kernel.mean().item(), errs_plain.mean().item()
+    log(f"[tracking] N={fl.N} B={fl.B} lane 0 mean EE error over {K_LONG} cycles: kernel "
+        f"route {err_kernel:.5f} m, plain route {err_plain:.5f} m (tolerance: within "
+        f"{TRACK_REL:.0%} of the plain route); the plain route's cycles took {secs:.1f} s; "
+        f"each cycle's error, kernel {[round(e, 4) for e in errs_kernel.tolist()]}, plain "
+        f"{[round(e, 4) for e in errs_plain.tolist()]}")
+    if not tracks_like_plain(err_kernel, err_plain):
+        raise RuntimeError(f"N=256 tracking: the kernel route is not within {TRACK_REL:.0%} "
+                           "of the plain route")
 
 
 def scrubbed(dzx, dzu):
@@ -1060,24 +1431,27 @@ def forced(module, name, value):
         setattr(module, name, taken)
 
 
-# the earlier kernels that a route can be forced back to, in turns with the
-# taken ones: pcg's global variant, the one-thread phase A of bsqp_iter and
-# iter, the one-thread kkt kernel; AB_ROUNDS rounds of the turns, since a
-# host-bound route's batches of K cycles spread by up to 1.5x in one run
+# the other kernels that a route can be forced to, in turns with the taken
+# ones: pcg's global variant, the one-thread phase A of bsqp_iter and iter,
+# the one-thread kkt and merit kernels (the earlier ones), and rk4's
+# two-warp kernel; AB_ROUNDS rounds of the turns, since a host-bound
+# route's batches of K cycles spread by up to 1.5x in one run
 AB_ROUNDS = 3
-EARLIER = {
+FORCED = {
     "pcg in the global variant": lambda: forced(cuda_pcg, "pcg_variant",
                                                 lambda n: ("global", 1, 1)),
     "the one-thread phase A": lambda: forced(cuda_iter, "phase_a_default",
                                              lambda layout, g: "one"),
     "the one-thread kkt": lambda: forced(cuda_kkt, "DEFAULT", ("one", 1)),
+    "the two-warp rk4 (crba)": lambda: forced(cuda_sim, "DEFAULT", "crba"),
+    "the one-thread merit": lambda: forced(cuda_merit, "DEFAULT", "one"),
 }
 
 
 def route_ab(f, state, i0, card, k, gates, earlier, fixed=False):
     """One route's per-cycle median (k cycles a batch) with the kernels it
-    takes and with one forced back to its earlier variant
-    (EARLIER[earlier]), in turns (taken, earlier, earlier, taken) AB_ROUNDS
+    takes and with one forced to another variant (FORCED[earlier]: the
+    earlier kernel, or rk4's two-warp one), in turns (taken, earlier, earlier, taken) AB_ROUNDS
     times: a kernel's gain end to end within one run, beside the spread of
     a host-bound route's batches, and each batch's mean PCG count (the two
     arms' trajectories part by rounding, and their work with them). With
@@ -1094,7 +1468,7 @@ def route_ab(f, state, i0, card, k, gates, earlier, fixed=False):
 
     med, pcg = {"taken": [], "earlier": []}, {"taken": [], "earlier": []}
     for arm in ("taken", "earlier", "earlier", "taken") * AB_ROUNDS:
-        with EARLIER[earlier]() if arm == "earlier" else contextlib.nullcontext():
+        with FORCED[earlier]() if arm == "earlier" else contextlib.nullcontext():
             ms_cycle, iters = batch()
         med[arm].append(statistics.median(ms_cycle))
         pcg[arm].append(float(iters.mean()))
@@ -1106,6 +1480,8 @@ def route_ab(f, state, i0, card, k, gates, earlier, fixed=False):
         f"{statistics.median(med['taken']):.3f} against "
         f"{statistics.median(med['earlier']):.3f} ms, means "
         f"{statistics.mean(med['taken']):.3f} against {statistics.mean(med['earlier']):.3f}; "
+        f"the taken arm faster in {sum(a < b for a, b in zip(med['taken'], med['earlier']))} "
+        f"of {len(med['taken'])} pairs; "
         f"PCG iterations a lane, each batch's mean: {[round(t, 2) for t in pcg['taken']]} "
         f"against {[round(t, 2) for t in pcg['earlier']]}")
 
@@ -1129,7 +1505,19 @@ def route_run(f, state, i0, gates, expect, card):
     return got, med, err.mean().item()
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--save-capped", metavar="PATH",
+                        help="only build the kernels and save the N=64 cap lanes' Schur "
+                             "system to PATH (save_capped_schur), then stop")
+    parser.add_argument("--fusion-probe", action="store_true",
+                        help="only build csrc/rk4.cu with and without multiply-add "
+                             "fusion and print how far its variants differ "
+                             "(fusion_probe), then stop")
+    parser.add_argument("--tracking-spread", action="store_true",
+                        help="only build the kernels and print the N=32 tracking gate "
+                             "and step check on nearby inputs (tracking_spread), then stop")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1138,19 +1526,30 @@ def main():
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    if args.fusion_probe:
+        fusion_probe(card)
+        return 0
     t0 = time.perf_counter()
     secs = _build.build()
     log(f"[build] nvcc seconds per kernel: {secs}; total "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.save_capped:
+        save_capped_schur(dev, args.save_capped)
+        return 0
+    if args.tracking_spread:
+        tracking_spread(dev, card)
+        return 0
     for name in _build.KERNELS:
         log(f"[build] ptxas {name}:\n{_build.ptxas_report(name).rstrip()}")
-    ops = generated_op_counts()
-    log(f"[bound] operations per call of the generated functions: {ops}")
+    stats = generated_stats()
+    ops = {name: n for name, (n, _) in stats.items()}
+    log(f"[bound] (operations, dependency depth) of the generated functions: {stats}")
     report_variants()
     check_pcg_smem_mirror()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     report_pcg_variants(N, B, sms)
     report_kkt_variants(sms)
+    report_rk4_merit_variants(sms)
 
     f = Fig8(dev)
     state, i0 = f.steady_state()
@@ -1224,8 +1623,21 @@ def main():
     time_variants(fw, state_w, i0_w - 1, card)
     del fw, state_w
 
-    # ---- kkt in every variant, N=32 B=512 ----
+    # ---- kkt, rk4 and merit in every variant, N=32 B=512 (rk4 at B=1 and 512) ----
     time_kkt(f, X, U, x_s, ref, card, 20)
+    x512, u512 = X[:, 0].contiguous(), U[:, 0].contiguous()
+    rk4_ms = time_in_rounds(
+        cuda_sim.VARIANTS, lambda v: rk4_step_batched(f.model, xr, ur, DT, None, RK4_SUBSTEPS,
+                                                      variant=v),
+        200, card, "rk4", cuda_sim.DEFAULT)
+    time_in_rounds(cuda_sim.VARIANTS,
+                   lambda v: rk4_step_batched(f.model, x512, u512, DT, None, RK4_SUBSTEPS,
+                                              variant=v),
+                   50, card, f"rk4 B={B}", cuda_sim.DEFAULT)
+    time_in_rounds(
+        cuda_merit.VARIANTS,
+        lambda v: merit_alphas_batched_cuda(f.model, f.cp, *merit_args, variant=v),
+        50, card, f"merit N={N} B={B}", MERIT_DEFAULT)
 
     # ---- pcg in every variant: N=32 B=512, and where shared meets cluster ----
     time_pcg(N, B, pcg_sys, pcg_skip, card, 10)
@@ -1270,18 +1682,24 @@ def main():
     staged_l, med_staged, e_staged = route_run(
         f, state, i0, ("off", "off"), dict(kkt=solves, pcg=solves, merit=solves, rk4=K),
         card)
-    for gates, earlier in ((("auto", "auto"), "the one-thread phase A"),
+    for gates, earlier in ((("auto", "auto"), "the two-warp rk4 (crba)"),
+                           (("auto", "auto"), "the one-thread phase A"),
                            (("off", "auto"), "the one-thread phase A"),
+                           (("off", "auto"), "the one-thread merit"),
                            (("off", "off"), "the one-thread kkt"),
+                           (("off", "off"), "the one-thread merit"),
                            (("off", "off"), "pcg in the global variant")):
         route_ab(f, state, i0, card, K, gates, earlier)
     log(f"[tracking] lane 0 mean EE error over {K} cycles: kernel route "
         f"{ek:.4f} m, fused-iteration route {e_fused:.4f} m, staged route "
         f"{e_staged:.4f} m, plain route {ep:.4f} m (limit {TRACK_MAX_M} m, "
         f"each kernel route within {TRACK_REL:.0%} of the plain route)")
-    if not (ep < TRACK_MAX_M and all(e < TRACK_MAX_M and abs(e - ep) <= TRACK_REL * ep
+    if not (ep < TRACK_MAX_M and all(e < TRACK_MAX_M and tracks_like_plain(e, ep)
                                       for e in (ek, e_fused, e_staged))):
         raise RuntimeError("fig-8 tracking check failed")
+    # the same gate with rk4's two-warp kernel as the plant of the warm-up
+    # and of the kernel route: why it is not the default (reported)
+    tracking_spread(dev, card, warmups=(WARMUP,), variants=("crba",))
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":
@@ -1303,24 +1721,38 @@ def main():
         f"{long_kkt_plain_ms:.3f} ms")
     report_pcg_variants(N_LONG, B_LONG, sms)
     # pcg's lam limit is plain32's own distance from float64, one sample of
-    # float32 noise: on the steady state that the staged kkt reaches, the
-    # kernel lies farther from plain32 than that (PERF.md section 6), so
-    # the limit is held on the steady state reached with the one-thread kkt
-    # (the same kernels, summed in another order) and printed on this one
+    # float32 noise: on the default route's steady state the kernel lies
+    # farther from plain32 than that, so the limit is printed there and not
+    # held (the counts and the float64 rule are); it is held on the steady
+    # state reached with the one-thread kkt (the same kernels, summed in
+    # another order); the witness says why: the CPU's float32 plain version
+    # lies about as far from the card's, and the kernel nearer float64 than
+    # the card's plain version (reported here), and on the same state's
+    # Schur system assembled in float64 the kernel stays within the plain
+    # arms' spread (held; PERF.md section 6)
     pcg_sys_l, pcg_skip_l, pcg_res_l = compare_pcg(fl, kkt_pl, laml, lam_held=False)
-    with EARLIER["the one-thread kkt"]():
+    with FORCED["the one-thread kkt"]():
         (Xw, Uw, lamw, xsw), i0_w = fl.steady_state()
     log(f"[compare] pcg at N={N_LONG} B={B_LONG} on the steady state reached with the "
         f"one-thread kkt:")
     compare_pcg(fl, setup_kkt_batched(fl.model, fl.cp, Xw, Uw, xsw, fl.ref(i0_w - 1),
                                       fl.f_ext, DT), lamw)
     del Xw, Uw, lamw, xsw
+    pcg_witness(fl, pcg_sys_l, "the default route's steady state", held=False)
+    pcg_witness(fl, f64_assembled_system(fl, Xl, Ul, xsl, refl, laml),
+                "the same state's Schur system assembled in float64", held=True)
     time_pcg(N_LONG, B_LONG, pcg_sys_l, pcg_skip_l, card, 5)
     core_l = sqp_iter_core_reference(fl.model, fl.cp, Xl, Ul, xsl, refl, fl.f_ext,
                                      laml, fl.hp.rho, fl.hp.pcg_tol, pcg_skip_l,
                                      DT, mpcg)
-    compare_merit(fl, Xl, Ul, *scrubbed(core_l[0], core_l[1]), xsl, refl)
+    merit_args_l, _ = compare_merit(fl, Xl, Ul, *scrubbed(core_l[0], core_l[1]), xsl, refl)
+    time_in_rounds(cuda_merit.VARIANTS,
+                   lambda v: merit_alphas_batched_cuda(fl.model, fl.cp, *merit_args_l,
+                                                       variant=v),
+                   20, card, f"merit N={N_LONG} B={B_LONG}", MERIT_DEFAULT)
     long_pcg_ms = event_ms(
+        lambda: pcg_solve_batched_cuda(*pcg_sys_l, mpcg, pcg_skip_l), 5)
+    long_pcg_device_ms = graph_ms(
         lambda: pcg_solve_batched_cuda(*pcg_sys_l, mpcg, pcg_skip_l), 5)
     long_pcg_plain_ms = event_ms(lambda: pcg_solve_batched(*pcg_sys_l, mpcg, pcg_skip_l), 1)
     S_dense = dense_btd(pcg_sys_l[0], pcg_sys_l[1])
@@ -1332,8 +1764,9 @@ def main():
                        nbytes(*pcg_sys_l, pcg_skip_l) + nbytes(laml)
                        + nbytes(torch.empty(B_LONG, device=dev)))
     log(f"[bound] pcg at N={N_LONG} B={B_LONG} ({pcg_variant(N_LONG)}): "
-        f"{long_pcg_ms:.4f} ms on the card, bound {long_bound[0]:.5f} ms by "
-        f"{long_bound[1]} ({long_bound[0] / long_pcg_ms:.4f} of the bound reached); "
+        f"{long_pcg_device_ms:.4f} ms on the device (graph_ms), {long_pcg_ms:.4f} ms per "
+        f"wrapper call, bound {long_bound[0]:.5f} ms by "
+        f"{long_bound[1]} ({long_bound[0] / long_pcg_device_ms:.4f} of the bound reached); "
         f"plain version {long_pcg_plain_ms:.3f} ms; torch.linalg.solve "
         f"{long_library_ms:.3f} ms; PCG iterations mean "
         f"{pcg_res_l['iters_mean']:.2f}, max {pcg_res_l['iters_max']}, at the cap "
@@ -1363,6 +1796,7 @@ def main():
         f"{float((step_l > 0).mean()):.3f} of (lane, cycle); PCG iterations mean "
         f"{float(pcg_l.mean()):.2f}, max {int(pcg_l.max())}, at the cap of {mpcg} on "
         f"{float((pcg_l == mpcg).mean()):.4f} of (lane, cycle) (reported, not checked)")
+    long_tracking(fl, state_l, i0_l, err_l)
 
     # ---- bsqp_iter and iter at the long horizons, B=512 ----
     for n in CHECK_HORIZONS:
@@ -1384,7 +1818,7 @@ def main():
                         + B * A1 * N * (merit_ops + CANDIDATE_OPS),
                         nbytes(X, U, lam, x_s, ref3, f.f_ext) + 17 * nbytes(vec)
                         + nbytes(X, U, lam)),
-        rk4=bound(2 * (4 * ops["fd"] + RK4_SUBSTEP_AXPY_OPS),
+        rk4=bound(RK4_SUBSTEPS * (4 * ops["fd"] + RK4_SUBSTEP_AXPY_OPS),
                   nbytes(xr, ur) + nbytes(xr)),
         iter=bound(core_ops + N * PCG_ITER_OPS * core_res["kernel_pcg_sum"],
                    nbytes(X, U, lam, x_s, ref3, f.f_ext) + 3 * nbytes(vec)
@@ -1397,6 +1831,18 @@ def main():
         merit=bound(B * A1 * N * (merit_ops + CANDIDATE_OPS),
                     nbytes(X, U, dzx, dzu, x_s, ref3, f.f_ext, vec) + B * A1 * 4),
     )
+    # rk4 at B = 1: the chain of dependent operations bounds it, far above
+    # the operations and bytes; bound_ms is the larger of the two
+    mhz = sm_max_clock_mhz()
+    lat = {v: rk4_latency_bound(stats, mhz, v) for v in cuda_sim.VARIANTS}
+    log(f"[bound] rk4 at B=1: bound by operations and bytes {bounds['rk4'][0]:.7f} ms "
+        f"({bounds['rk4'][1]}); latency bound at the SM's maximum clock {mhz:.0f} MHz "
+        f"(4 x {RK4_SUBSTEPS} stages x the depth of one stage x {FMA_CYCLES} cycles): "
+        + ", ".join(f"{v} {lat[v][0]:.5f} ms (depth {lat[v][1]}), {rk4_ms[v][0]:.5f} ms "
+                    f"on the card, {lat[v][0] / rk4_ms[v][0]:.4f} of it reached"
+                    for v in cuda_sim.VARIANTS))
+    if lat[cuda_sim.DEFAULT][0] > bounds["rk4"][0]:
+        bounds["rk4"] = (lat[cuda_sim.DEFAULT][0], "latency")
     main = dict(bsqp_iter=main_launches["bsqp_iter"], rk4=main_launches["rk4"],
                 iter=fused_l["iter"], kkt=staged_l["kkt"], pcg=staged_l["pcg"],
                 merit=staged_l["merit"])

@@ -15,6 +15,13 @@ dropped. The result is a header of straight-line
   knot_merit(q, qd, u, xn, r3, fe, dt, w_track, w) (merit_fast._knot_parts)
       -> cost, ucost, defect
 
+fd once more in parts, for a kernel that shares one plant among the lanes
+of two warps (csrc/rk4.cu):
+
+  fd_bias(q, qd, fe) -> bias                      (the RNEA at qdd = 0)
+  fd_crba(q) -> M                                 (CRBA, lower triangle)
+  fd_solve(M, u, bias) -> qdd                     (the unrolled Cholesky)
+
 and knot_kkt once more in stages, for kernels that share a knot among
 threads (csrc/kkt.cu, phase A of csrc/sqp_iter.cuh):
 
@@ -30,6 +37,12 @@ direction first); the split is written into the header as constexpr tables
 (KKT_DIRS_G<G>, each part's line count in a comment). Composed, the stages
 compute knot_kkt's outputs with knot_kkt's own expressions.
 
+Above each function the header states its operations and its dependency
+depth (the longest chain of operations from its inputs), which
+`header_stats` reads back and `main` prints. A binary + - * / and a math
+call count as one operation; a negation counts as none, since it compiles
+into its user's operand.
+
 The cost weights `w` (CostParams order), dt and the tracking weight are
 runtime arguments; only the robot constants and limits are folded.
 `GATO_HD` is `__host__ __device__` under nvcc and empty otherwise, so the
@@ -41,6 +54,7 @@ header also compiles as host C++ (tests/test_torch_codegen.py).
 from __future__ import annotations
 
 import os
+import re
 
 import torch
 
@@ -51,6 +65,7 @@ from ..ops.kkt_fast import (ab_channels, cost_channels, defect_channels,
 from ..ops.merit_fast import _get_cd, _knot_parts
 from ..robots.model import load_robot
 from . import mathshim as ms
+from .channelized import chsub
 
 GENERATED_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "generated")
@@ -150,6 +165,20 @@ class Emitter:
                 need.update(deps)
         return {name for name, _, _ in self.lines if name in need}
 
+    def stats(self, channels):
+        """(operations, dependency depth) of the lines that `channels`
+        need: a binary + - * / or a math call is one operation, a negation
+        none (it becomes an operand modifier of its user), and the depth is
+        the longest chain of operations from the inputs."""
+        need = self.live(channels)
+        depth, ops = {}, 0
+        for name, expr, deps in self.lines:
+            if name in need:
+                op = not expr.startswith("-")
+                ops += op
+                depth[name] = op + max((depth.get(d, 0) for d in deps), default=0)
+        return ops, max(depth.values(), default=0)
+
     def render(self, outputs):
         """Body lines needed by `outputs` [(target, channel)], then the
         output stores (a structural zero stores 0)."""
@@ -171,6 +200,16 @@ def _inputs(em, name, n):
     return [Sym(em, f"{name}[{i}]") for i in range(n)]
 
 
+def _func(em, sig, outputs):
+    """A generated function: (signature, body lines, (operations, depth))."""
+    return sig, em.render(outputs), em.stats([ch for _, ch in outputs])
+
+
+def _angles(em, nq):
+    q = _inputs(em, "q", nq)
+    return q, [ms.cos(x) for x in q], [ms.sin(x) for x in q]
+
+
 def _weights(em):
     w = _inputs(em, "w", 7)
     return CostParams(*w)
@@ -184,7 +223,7 @@ def _gen_fd(cd, nq):
     ss = [ms.sin(x) for x in q]
     qdd = cd.fd(cs, ss, qd, u, f_ext=fe)
     sig = ("fd(const T* q, const T* qd, const T* u, const T* fe, T* qdd)")
-    return sig, em.render([(f"qdd[{i}]", qdd[i]) for i in range(nq)])
+    return _func(em, sig, [(f"qdd[{i}]", qdd[i]) for i in range(nq)])
 
 
 def _knot_args(em, nq):
@@ -212,7 +251,7 @@ def _gen_knot_kkt(cd, key, nq):
             + [(f"R_diag[{r}]", Rd[r]) for r in range(nq)]
             + [(f"rv[{r}]", rv[r]) for r in range(nq)])
     sig = (f"knot_kkt({_KNOT_SIG}, O A, O B, O c, O Q, O qv, O R_diag, O rv)")
-    return sig, em.render(outs)
+    return _func(em, sig, outs)
 
 
 def _gen_knot_merit(cd, key, nq):
@@ -221,8 +260,7 @@ def _gen_knot_merit(cd, key, nq):
     cost, ucost, defect = _knot_parts(cd, key, cp, q, qd, u, xn, r3, fe, dt,
                                       2, w_track)
     sig = f"knot_merit({_KNOT_SIG}, O out)"
-    return sig, em.render([("out[0]", cost), ("out[1]", ucost),
-                           ("out[2]", defect)])
+    return _func(em, sig, [("out[0]", cost), ("out[1]", ucost), ("out[2]", defect)])
 
 
 def _gen_knot_dyn(cd, nq):
@@ -232,7 +270,7 @@ def _gen_knot_dyn(cd, nq):
     qdd, Minv = fd_primal_channels(cd, [ms.cos(x) for x in q],
                                    [ms.sin(x) for x in q], qd, u, fe)
     sig = "knot_dyn(const T* q, const T* qd, const T* u, const T* fe, O qdd, O Minv)"
-    return sig, em.render([(f"qdd[{i}]", qdd[i]) for i in range(nq)]
+    return _func(em, sig, [(f"qdd[{i}]", qdd[i]) for i in range(nq)]
                           + [(f"Minv[{c * nq + r}]", Minv[c][r])
                              for c in range(nq) for r in range(nq)])
 
@@ -248,7 +286,7 @@ def _gen_knot_cost(cd, key, nq):
     nx = 2 * nq
     sig = ("knot_cost(const T* q, const T* qd, const T* u, const T* r3, "
            "T w_track, const T* w, O Q, O qv, O R_diag, O rv)")
-    return sig, em.render([(f"Q[{r * nx + k}]", Q[r][k]) for r in range(nx) for k in range(nx)]
+    return _func(em, sig, [(f"Q[{r * nx + k}]", Q[r][k]) for r in range(nx) for k in range(nx)]
                           + [(f"qv[{r}]", qv[r]) for r in range(nx)]
                           + [(f"R_diag[{r}]", Rd[r]) for r in range(nq)]
                           + [(f"rv[{r}]", rv[r]) for r in range(nq)])
@@ -261,7 +299,39 @@ def _gen_knot_defect(nq):
     c = defect_channels(q, qd, xn, qdd, Sym(em, "dt"), 2, None)
     sig = ("knot_defect(const T* q, const T* qd, const T* xn, const T* qdd, "
            "T dt, O c)")
-    return sig, em.render([(f"c[{r}]", c[r]) for r in range(2 * nq)])
+    return _func(em, sig, [(f"c[{r}]", c[r]) for r in range(2 * nq)])
+
+
+def _gen_fd_bias(cd, nq):
+    """fd's RNEA bias (qdd = 0, gravity, the wrench): M qdd = u - bias."""
+    em = Emitter()
+    q, cs, ss = _angles(em, nq)
+    qd, fe = _inputs(em, "qd", nq), _inputs(em, "fe", 6)
+    bias = cd.rnea(cs, ss, qd, [None] * nq, f_ext=fe)
+    return _func(em, "fd_bias(const T* q, const T* qd, const T* fe, O bias)",
+                 [(f"bias[{i}]", bias[i]) for i in range(nq)])
+
+
+def _gen_fd_crba(cd, nq):
+    """fd's mass matrix by CRBA, as fd computes it: its lower triangle
+    column-major, M[c * NQ + r] for r >= c (fd_solve's layout)."""
+    em = Emitter()
+    _, cs, ss = _angles(em, nq)
+    M = cd.crba(cs, ss)
+    return _func(em, "fd_crba(const T* q, O M)",
+                 [(f"M[{c * nq + r}]", M[r][c]) for c in range(nq) for r in range(c, nq)])
+
+
+def _gen_fd_solve(cd, nq):
+    """fd's last step, qdd = M^-1 (u - bias) by the unrolled Cholesky, from
+    M's lower triangle column-major (M[c * NQ + r], r >= c)."""
+    em = Emitter()
+    M = [[Sym(em, f"M[{min(r, c) * nq + max(r, c)}]") for c in range(nq)]
+         for r in range(nq)]
+    u, bias = _inputs(em, "u", nq), _inputs(em, "bias", nq)
+    qdd = cd.chol_solve(M, [chsub(u[i], bias[i]) for i in range(nq)])
+    return _func(em, "fd_solve(const T* M, const T* u, const T* bias, O qdd)",
+                 [(f"qdd[{i}]", qdd[i]) for i in range(nq)])
 
 
 def _dual_trace(cd, nq):
@@ -294,7 +364,7 @@ def split_directions(em, cols, groups):
 def _gen_knot_dual(em, cols, dirs, nq, name):
     nx = 2 * nq
     sig = (f"{name}(const T* q, const T* qd, const T* qdd, const T* fe, O dID)")
-    return sig, em.render([(f"dID[{j * nx + z}]", cols[z][j])
+    return _func(em, sig, [(f"dID[{j * nx + z}]", cols[z][j])
                            for z in dirs for j in range(nq)])
 
 
@@ -308,7 +378,7 @@ def _gen_knot_ab(cols, dirs, bcols, nq, name):
             for j in range(nq)] for z in range(nx)]
     A, Bm = ab_channels(dqdd_channels(Minv, dID, nq), Minv, Sym(em, "dt"), 2, nq)
     sig = f"{name}(const T* Minv, const T* dID, T dt, O A, O B)"
-    return sig, em.render([(f"A[{r * nx + z}]", A[r][z]) for r in range(nx) for z in dirs]
+    return _func(em, sig, [(f"A[{r * nx + z}]", A[r][z]) for r in range(nx) for z in dirs]
                           + [(f"B[{r * nq + c}]", Bm[r][c]) for r in range(nx)
                              for c in bcols])
 
@@ -356,7 +426,8 @@ def generate(robot: str) -> str:
     em, cols = _dual_trace(cd, nq)
     funcs = [_gen_fd(cd, nq), _gen_knot_kkt(cd, model.key, nq),
              _gen_knot_merit(cd, model.key, nq), _gen_knot_dyn(cd, nq),
-             _gen_knot_cost(cd, model.key, nq), _gen_knot_defect(nq)]
+             _gen_knot_cost(cd, model.key, nq), _gen_knot_defect(nq),
+             _gen_fd_bias(cd, nq), _gen_fd_crba(cd, nq), _gen_fd_solve(cd, nq)]
     tables, groups_parts = [
         "",
         "// The staged KKT's split of the dual RNEA's tangent directions: part P of",
@@ -375,9 +446,10 @@ def generate(robot: str) -> str:
                                       nq, f"knot_ab_g{g}_p{p}"))
             groups_parts.append((g, p))
     parts += tables
-    for sig, body in funcs:
+    for sig, body, (ops, depth) in funcs:
         tmpl = "typename T, typename O" if " O " in sig else "typename T"
-        parts += ["", f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
+        parts += ["", f"// {sig[:sig.index('(')]}: {ops} operations, dependency depth {depth}",
+                  f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
         parts += body
         parts.append("}")
     parts += [""] + _dispatch(
@@ -394,6 +466,12 @@ def header_path(robot: str) -> str:
     return os.path.join(GENERATED_DIR, f"{robot}.cuh")
 
 
+def header_stats(text: str) -> dict[str, tuple[int, int]]:
+    """{function: (operations, dependency depth)} from a generated header."""
+    return {m.group(1): (int(m.group(2)), int(m.group(3))) for m in re.finditer(
+        r"^// (\w+): (\d+) operations, dependency depth (\d+)$", text, re.M)}
+
+
 def main():
     os.makedirs(GENERATED_DIR, exist_ok=True)
     for robot in ROBOTS:
@@ -401,6 +479,8 @@ def main():
         with open(header_path(robot), "w") as f:
             f.write(text)
         print(f"wrote {header_path(robot)} ({text.count(chr(10))} lines)")
+        for name, (ops, depth) in header_stats(text).items():
+            print(f"  {name}: {ops} operations, dependency depth {depth}")
 
 
 if __name__ == "__main__":

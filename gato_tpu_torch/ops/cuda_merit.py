@@ -19,6 +19,12 @@ from .cuda_sim import check_cuda, require_cuda_robot
 from .merit_fast import merit_alphas_batched
 
 MAX_ALPHAS = 16  # alphas passed by value in MeritArgs
+# the merit kernel's variants (csrc/merit.cu): "warps", the default, holds
+# WARPS_PER_CTA (problem, alpha) pairs a CTA, a warp each; "one" is the
+# earlier kernel (a block per pair), taken only when forced
+DEFAULT = "warps"
+VARIANTS = ("warps", "one")
+WARPS_PER_CTA = 4
 
 
 class _MeritArgs(ctypes.Structure):
@@ -31,20 +37,42 @@ class _MeritArgs(ctypes.Structure):
            ("alphas", ctypes.c_float * MAX_ALPHAS)])
 
 
+def _variant_code(variant) -> int:
+    """csrc/merit.cu's variant argument: 1 for "warps", 0 for "one"."""
+    if variant not in VARIANTS:
+        raise ValueError(f"merit kernel variant {variant!r} is not compiled; "
+                         f"one of {VARIANTS}")
+    return int(variant == "warps")
+
+
+def blocks_per_sm(variant) -> int:
+    """Resident CTAs per SM of a variant, as the library reports them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = load_library("merit").gato_merit_blocks_per_sm
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(_variant_code(variant))
+
+
 def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
                               dZU, x_s, ref, f_ext, mu, dt: float, alphas,
-                              integrator_type: int = 2):
+                              integrator_type: int = 2, *,
+                              variant: str | None = None):
     """merit_alphas_batched's contract: the merit at X + alpha dZX,
     U + alpha dZU for every (lane, alpha), (B, A); alphas a sequence of
     floats, an alpha of 0 evaluating X, U themselves.
 
     CUDA kernel: csrc/merit.cu, replacing gato_tpu/ops/pallas_merit.py::
-    _merit_knot_kernel; one block per (problem, alpha), one thread per
-    knot, the candidate formed in registers. Bound by the generated
-    straight-line knot_merit each thread runs."""
+    _merit_knot_kernel, the candidates formed in registers, a thread a
+    knot. Bound by the generated straight-line knot_merit of every
+    (problem, alpha, knot). By default (DEFAULT, "warps") a CTA holds
+    WARPS_PER_CTA pairs, a warp each; `variant="one"` forces the earlier
+    kernel (a block a pair), for measurements only."""
     if X.device.type == "cpu":
         return merit_alphas_batched(model, cp, X, U, dZX, dZU, x_s, ref,
                                     f_ext, mu, dt, alphas, integrator_type)
+    variant = variant or DEFAULT
+    code = _variant_code(variant)
     require_cuda_robot(model)
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
@@ -65,15 +93,16 @@ def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
     out = torch.empty(B, A, dtype=torch.float32, device=X.device)
     lib = load_library("merit")
     fn = lib.gato_merit_indy7
-    fn.argtypes = [ctypes.POINTER(_MeritArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_MeritArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     args = _MeritArgs(*[t.data_ptr() for t in (
         X, U, dZX, dZU, x_s, ref, f_ext, mu, out)], B, N, A, ref.shape[-1],
         dt, (ctypes.c_float * 7)(*cp.weights()),
         (ctypes.c_float * MAX_ALPHAS)(*alphas))
-    err = fn(ctypes.byref(args), torch.cuda.current_stream(X.device).cuda_stream)
+    err = fn(ctypes.byref(args), code,
+             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"merit kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"merit kernel launch ({variant}) failed: CUDA error {err}")
     merit_alphas_batched_cuda.launches += 1
     return out
 

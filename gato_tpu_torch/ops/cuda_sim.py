@@ -3,8 +3,7 @@
 Port of gato_tpu/ops/pallas_sim.py. `rk4_channels` is the plain PyTorch
 version (the same channel trace the TPU kernel body runs);
 `rk4_step_batched` is the kernel wrapper: on a CUDA tensor it launches
-csrc/rk4.cu (one thread per problem, `substeps` x 4 generated forward
-dynamics calls), on a CPU tensor it runs the plain version.
+csrc/rk4.cu, on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +18,16 @@ from ..robots.model import RobotModel
 from .merit_fast import _get_cd
 
 CUDA_ROBOTS = ("indy7",)
+# the rk4 kernel's variants (csrc/rk4.cu): "one", the default, one thread
+# per problem; "crba", only when forced, spreads each forward dynamics call
+# over two warps (CRBA beside the RNEA bias, fd's own expressions): about
+# 2.7x faster at B = 1 on an H100, but its closed loop fails
+# chip_smoke.py's tracking gate (PERF.md), so the default stays the
+# earlier kernel
+DEFAULT = "one"
+VARIANTS = ("one", "crba")
+# each variant's code in csrc/rk4.cu's gato_rk4_indy7
+CODES = {"one": 0, "crba": 1}
 
 
 def rk4_channels(cd, q, qd, u, fe, dt, substeps):
@@ -77,16 +86,21 @@ def require_cuda_robot(model: RobotModel):
 
 
 def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
-                     substeps: int = 1):
+                     substeps: int = 1, *, variant: str | None = None):
     """Batched RK4 step: x (B, nx), u (B, nu), optional EE-frame wrench
     f_ext (B, 6) -> (B, nx).
 
     CUDA kernel: csrc/rk4.cu, replacing gato_tpu/ops/pallas_sim.py::
-    _rk4_kernel. Bound by the straight-line forward dynamics each thread
-    runs (registers and arithmetic; 30 floats in, 12 out per problem); one
-    thread per problem keeps every intermediate in registers."""
+    _rk4_kernel. By default (DEFAULT, "one") a thread per problem runs
+    the 4 x substeps forward dynamics calls in series. `variant="crba"`
+    forces the two-warp kernel (a CTA per problem: the mass matrix by CRBA
+    beside the RNEA bias, then the Cholesky solve on every thread), whose
+    latency at B = 1 is the shorter chain of dependent operations."""
     if x.device.type == "cpu":
         return rk4_plain(model, x, u, dt, f_ext, substeps)
+    variant = variant or DEFAULT
+    if variant not in VARIANTS:
+        raise ValueError(f"rk4 kernel variant {variant!r} is not compiled; one of {VARIANTS}")
     require_cuda_robot(model)
     B, nx = x.shape
     check_cuda("x", x, (B, model.nx))
@@ -97,14 +111,15 @@ def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
     lib = load_library("rk4")
     fn = lib.gato_rk4_indy7
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), u.data_ptr(),
              None if f_ext is None else f_ext.data_ptr(), out.data_ptr(), B,
-             dt / substeps, substeps,
+             dt / substeps, substeps, CODES[variant],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"rk4 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rk4 kernel launch ({variant}) failed: CUDA error {err}")
     rk4_step_batched.launches += 1
     return out
 

@@ -1,10 +1,13 @@
 """The code generator (gato_tpu_torch.dynamics.codegen) without a card:
 the committed header is what the generator writes today, and the header,
 compiled as host C++ (T = double), computes what the plain PyTorch trace
-computes: fd, knot_kkt and knot_merit to rtol 1e-10 on random inputs; and
-the staged functions (knot_dyn, knot_dual, knot_ab, knot_defect,
-knot_cost), composed as csrc/kkt.cu composes them, compute knot_kkt's
-outputs for every split of the tangent directions.
+computes: fd, knot_kkt and knot_merit to rtol 1e-10 on random inputs; the
+staged functions (knot_dyn, knot_dual, knot_ab, knot_defect, knot_cost),
+composed as csrc/kkt.cu composes them, compute knot_kkt's outputs for every
+split of the tangent directions; and fd's parts, composed as csrc/rk4.cu's
+crba variant composes them (fd_crba, fd_bias, fd_solve), compute fd.
+The header compiles at -O0: the test runs each function a few times, and
+g++ takes a quarter of -O1's time over 50k lines of straight-line code.
 """
 
 import ctypes
@@ -45,6 +48,13 @@ void h_kkt(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
 void h_merit(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
              const T* fe, T dt, T w_track, const T* w, T* out) {
   gato::indy7::knot_merit<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, out);
+}
+// csrc/rk4.cu's crba variant on one thread: CRBA, the bias, the solve
+void h_fd_crba(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
+  T M[36], bias[6];
+  gato::indy7::fd_crba<T, T*>(q, M);
+  gato::indy7::fd_bias<T, T*>(q, qd, fe, bias);
+  gato::indy7::fd_solve<T, T*>(M, u, bias, qdd);
 }
 }
 namespace gato { namespace indy7 {
@@ -100,7 +110,7 @@ def host_lib(tmp_path_factory):
     src.write_text(_SHIM)
     lib = d / "libhost.so"
     csrc = os.path.join(os.path.dirname(codegen.GENERATED_DIR))
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", csrc,
+    subprocess.run([gxx, "-O0", "-std=c++17", "-shared", "-fPIC", "-I", csrc,
                     "-o", str(lib), str(src)], check=True, timeout=600)
     return ctypes.CDLL(str(lib))
 
@@ -132,15 +142,15 @@ def test_generated_fd_matches_trace(host_lib):
     ref = cd.fd([ms.cos(v) for v in q], [ms.sin(v) for v in q], _cols(x["qd"]),
                 _cols(x["u"]), f_ext=_cols(x["fe"]))
     ref = torch.stack(ref, 1).numpy()
-    fn = host_lib.h_fd
-    fn.argtypes = [ctypes.c_void_p] * 5
-    out = np.zeros((M, NQ))
-    for m in range(M):
-        qdd = np.zeros(NQ)
-        fn(_ptr(x["q"][m].copy()), _ptr(x["qd"][m].copy()),
-           _ptr(x["u"][m].copy()), _ptr(x["fe"][m].copy()), _ptr(qdd))
-        out[m] = qdd
-    np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-10)
+    for fn in (host_lib.h_fd, host_lib.h_fd_crba):
+        fn.argtypes = [ctypes.c_void_p] * 5
+        out = np.zeros((M, NQ))
+        for m in range(M):
+            qdd = np.zeros(NQ)
+            fn(_ptr(x["q"][m].copy()), _ptr(x["qd"][m].copy()),
+               _ptr(x["u"][m].copy()), _ptr(x["fe"][m].copy()), _ptr(qdd))
+            out[m] = qdd
+        np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-10)
 
 
 def test_generated_knot_kkt_matches_trace(host_lib):

@@ -31,11 +31,13 @@ from gato_tpu_torch.ops.cuda_iter import (SMEM_LIMIT, smem_bytes,
                                           sqp_iter_core_cuda,
                                           sqp_iter_core_reference)
 from gato_tpu_torch.ops.cuda_kkt import KKT_GROUPS, setup_kkt_batched_cuda
+from gato_tpu_torch.ops.cuda_merit import VARIANTS as MERIT_VARIANTS
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import (MAX_KNOTS, SHARED_GROUPS,
                                          SHARED_MAX_N, _PcgArgs, fits,
                                          pcg_solve_batched_cuda,
                                          pcg_variant)
+from gato_tpu_torch.ops.cuda_sim import VARIANTS as RK4_VARIANTS
 from gato_tpu_torch.ops.cuda_sim import rk4_plain, rk4_step_batched
 from gato_tpu_torch.ops.cuda_solve import (IterState, Problem, sqp_iter_cuda,
                                            sqp_iter_reference,
@@ -101,14 +103,19 @@ def _rand(rng, lo, hi, shape, dev):
                         device=dev)
 
 
-def test_rk4_kernel_matches_plain(dev):
+@pytest.mark.parametrize("variant", RK4_VARIANTS)
+@pytest.mark.parametrize("B", (1, 512))
+def test_rk4_kernel_matches_plain(dev, B, variant):
+    """Both rk4 variants (a thread a plant, the default; a CTA of two warps
+    a plant) at the plant's B = 1 and at B = 512, with and without a
+    wrench."""
     m = load_robot("indy7", torch.float32, dev)
     rng = np.random.default_rng(5)
-    x, u, fe = (_rand(rng, -1, 1, (512, 12), dev), _rand(rng, -5, 5, (512, 6), dev),
-                _rand(rng, -5, 5, (512, 6), dev))
+    x, u, fe = (_rand(rng, -1, 1, (B, 12), dev), _rand(rng, -5, 5, (B, 6), dev),
+                _rand(rng, -5, 5, (B, 6), dev))
     for f in (None, fe):
         before = rk4_step_batched.launches
-        out = rk4_step_batched(m, x, u, 0.01, f, 2)
+        out = rk4_step_batched(m, x, u, 0.01, f, 2, variant=variant)
         torch.cuda.synchronize()
         assert rk4_step_batched.launches == before + 1
         torch.testing.assert_close(out, rk4_plain(m, x, u, 0.01, f, 2),
@@ -247,6 +254,24 @@ def test_kkt_and_merit_kernels_match_plain(dev, N, variant):
              p["f_ext"], p["mu"], 0.01, alphas)
     before = merit_alphas_batched_cuda.launches
     mk = merit_alphas_batched_cuda(m, COST, *margs)
+    _launched(merit_alphas_batched_cuda, before)
+    mp = merit_alphas_batched(m, COST, *margs)
+    assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
+
+
+@pytest.mark.parametrize("variant", MERIT_VARIANTS)
+@pytest.mark.parametrize("N", (32, 256))
+def test_merit_kernel_variants_match_plain(dev, N, variant):
+    """Every merit variant at N = 32 (a warp of knots a pair) and 256 (a
+    pair over several warps, looping): every (lane, alpha) merit within
+    1e-5, relative."""
+    m = load_robot("indy7", torch.float32, dev)
+    p = _problem(dev, 24, N, N + 1)
+    alphas = [0.0] + [0.5 ** j for j in range(8)]
+    margs = (p["X"], p["U"], p["dzx"], p["dzu"], p["x_s"], p["ref"],
+             p["f_ext"], p["mu"], 0.01, alphas)
+    before = merit_alphas_batched_cuda.launches
+    mk = merit_alphas_batched_cuda(m, COST, *margs, variant=variant)
     _launched(merit_alphas_batched_cuda, before)
     mp = merit_alphas_batched(m, COST, *margs)
     assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
