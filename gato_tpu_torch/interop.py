@@ -45,14 +45,35 @@ def cost_from_numpy(weights: dict) -> CostParams:
     return CostParams(**{k: float(np.asarray(v)) for k, v in weights.items()})
 
 
+def _tensor(a, dtype, device):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def hyper_from_numpy(rho, drho, mu, pcg_tol, device="cuda",
+                     dtype=torch.float64) -> HyperParams:
+    """HyperParams from four (B,) numpy arrays."""
+    device = check_device(device)
+    return HyperParams(*(_tensor(a, dtype, device) for a in (rho, drho, mu, pcg_tol)))
+
+
 def state_from_numpy(X, U, lam, x_s, ref, f_ext, rho, drho, mu, pcg_tol,
                      device="cuda", dtype=torch.float64):
     """(X, U, lam, x_s, ref, f_ext, HyperParams) as tensors from numpy
     arrays in the JAX package's layouts."""
     device = check_device(device)
+    return (*(_tensor(a, dtype, device) for a in (X, U, lam, x_s, ref, f_ext)),
+            hyper_from_numpy(rho, drho, mu, pcg_tol, device, dtype))
 
-    def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    hp = HyperParams(rho=t(rho), drho=t(drho), mu=t(mu), pcg_tol=t(pcg_tol))
-    return t(X), t(U), t(lam), t(x_s), t(ref), t(f_ext), hp
+def bsqp_state_from_numpy(solver, XU_B, lam, hp, hp_init, f_ext_B):
+    """Carry a JAX BSQP facade's state into the port's `solver`
+    (api.interface.BSQP) from numpy arrays: the flat warm start XU_B
+    (B, N*(nx+nu)-nu), the duals lam (B, N, nx), the hyperparameters hp and
+    their reset values hp_init, each (rho, drho, mu, pcg_tol) of (B,)
+    arrays, and the EE-frame wrench hypotheses f_ext_B (B, 6)."""
+    dtype, device = solver.lam.dtype, solver.lam.device
+    solver.XU_B = np.array(XU_B, dtype=solver.XU_B.dtype)
+    solver.lam = _tensor(lam, dtype, device)
+    solver.f_ext_B = _tensor(f_ext_B, dtype, device)
+    solver.hp = hyper_from_numpy(*hp, device=device, dtype=dtype)
+    solver._hp_init = hyper_from_numpy(*hp_init, device=device, dtype=dtype)

@@ -16,7 +16,10 @@ gato_tpu/solver/bsqp.py::solve_batched. One SQP iteration is
   sqp_iter_staged     the KKT kernel (csrc/kkt.cu), the Schur condensation
                       in torch, the PCG kernel (csrc/pcg.cu), dz in torch,
                       the step_ok scrub, the merit kernel and the line
-                      search: the reference GATO's launch sequence.
+                      search: the reference GATO's launch sequence;
+  sqp_iter_btd        sqp_iter_staged with the direct block-tridiagonal
+                      solve (ops/btd_solve.py, torch) in place of the pcg
+                      kernel: linear_solver="btd".
 
 The kernel wrappers take their plain versions on CPU tensors, so every
 route runs in plain PyTorch on the CPU. All run under
@@ -36,6 +39,7 @@ import torch
 
 from ..robots.model import RobotModel
 from ..solver.types import BSQPSettings
+from .btd_solve import btd_solve_batched
 from .cost import CostParams
 from .cuda_iter import launch_iteration, sqp_iter_core_cuda
 from .cuda_kkt import setup_kkt_batched_cuda
@@ -150,6 +154,23 @@ def sqp_iter_staged(model: RobotModel, cp: CostParams, prob: Problem,
     return _staged(setup_kkt_batched_cuda, pcg_solve_batched_cuda,
                    merit_alphas_batched_cuda, model, cp, prob, st, settings,
                    seeded)
+
+
+def _btd(S_main, S_lower, P_main, P_lower, gamma, lam, pcg_tol, max_pcg_iters,
+         skip):
+    """btd_solve_batched in pcg_solve_batched's signature (no
+    preconditioner, tolerance or cap)."""
+    return btd_solve_batched(S_main, S_lower, gamma, lam, skip)
+
+
+def sqp_iter_btd(model: RobotModel, cp: CostParams, prob: Problem,
+                 st: IterState, settings: BSQPSettings,
+                 seeded: bool) -> tuple[IterState, IterStats]:
+    """sqp_iter_staged's contract with the direct block-tridiagonal solve
+    in place of PCG: the JAX package computes it outside any Pallas kernel
+    (gato_tpu/solver/bsqp.py:246-249), so it is torch here on both devices."""
+    return _staged(setup_kkt_batched_cuda, _btd, merit_alphas_batched_cuda,
+                   model, cp, prob, st, settings, seeded)
 
 
 def sqp_iter_fused(model: RobotModel, cp: CostParams, prob: Problem,

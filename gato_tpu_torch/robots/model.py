@@ -60,6 +60,10 @@ class RobotModel:
         return self.R_tree.shape[0]
 
     @property
+    def nv(self) -> int:
+        return self.nq
+
+    @property
     def nx(self) -> int:
         return 2 * self.nq
 

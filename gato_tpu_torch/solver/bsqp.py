@@ -12,9 +12,11 @@ three per-iteration routes (ops/cuda_solve.py):
             and the line search in torch: every N the pcg kernel takes
             (N <= 1024), the only route past N = 128.
 
-Every route runs under the chained driver (sqp_solve_chained), which
-carries the reference's whole-batch solve_ratio exit. On CPU tensors each
-route runs the plain PyTorch versions of its kernels.
+With linear_solver="btd" every N takes the staged route with the direct
+block-tridiagonal solve (ops/btd_solve.py) in place of the pcg kernel
+("btd"). Every route runs under the chained driver (sqp_solve_chained),
+which carries the reference's whole-batch solve_ratio exit. On CPU tensors
+each route runs the plain PyTorch versions of its kernels.
 """
 
 from __future__ import annotations
@@ -23,13 +25,15 @@ import torch
 
 from ..ops.cost import CostParams
 from ..ops.cuda_iter import MAX_KNOTS
-from ..ops.cuda_solve import (sqp_iter_cuda, sqp_iter_fused, sqp_iter_staged,
-                              sqp_solve_chained)
+from ..ops.cuda_solve import (sqp_iter_btd, sqp_iter_cuda, sqp_iter_fused,
+                              sqp_iter_staged, sqp_solve_chained)
+from ..ops.integrators import sim_step
 from ..robots.model import RobotModel
 from .types import KERNEL_GATES, BSQPSettings, HyperParams, SQPStats
 
 ITER_FNS = {"solve": sqp_iter_cuda, "iter": sqp_iter_fused,
-            "staged": sqp_iter_staged}
+            "staged": sqp_iter_staged, "btd": sqp_iter_btd}
+LINEAR_SOLVERS = ("pcg", "btd")
 
 
 def select_route(solve_kernel: str, iter_kernel: str, N: int,
@@ -62,12 +66,12 @@ def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
     """X (B,N,nx), U (B,N-1,nu), lam (B,N,nx) warm-started duals, x_s
     (B,nx), ref (B,N,6), f_ext (B,6) per-problem EE-frame wrench
     hypotheses, dt a float. Returns (X, U, lam, hp_out, stats)."""
-    if settings.linear_solver != "pcg":
-        raise NotImplementedError(
-            f"linear_solver={settings.linear_solver!r}: only 'pcg' is ported "
-            "(ROADMAP Queue 1, btd_solve)")
-    route = select_route(settings.solve_kernel, settings.iter_kernel,
-                         X.shape[1], X.is_cuda)
+    if settings.linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(f"linear_solver={settings.linear_solver!r}: expected "
+                         f"one of {LINEAR_SOLVERS}")
+    route = ("btd" if settings.linear_solver == "btd" else
+             select_route(settings.solve_kernel, settings.iter_kernel,
+                          X.shape[1], X.is_cuda))
     (Xo, Uo, lam_o, rho_o, _drho, conv, merit0, merit_f, sqp_iters, pcg_it,
      ls_merit, ls_step) = sqp_solve_chained(
         ITER_FNS[route], model, cp, settings, X, U, lam, x_s, ref, f_ext,
@@ -81,3 +85,18 @@ def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
         initial_merit=merit0, final_merit=merit_f,
         num_iters_run=sqp_iters.max())
     return Xo, Uo, lam_o, hp_out, stats
+
+
+# the JAX package's jitted entry point; one function here
+solve_batched_jit = solve_batched
+
+
+def sim_forward_batched(model: RobotModel, x, u, f_ext_B, dt,
+                        integrator_type: int = 2):
+    """One dynamics step of a shared state x (nx,) under control u (nu,)
+    for each problem's EE-frame wrench hypothesis f_ext_B (B, 6), in one
+    batched call: (B, nx). The force estimator's scoring step (the
+    reference's simForwardBatched, gato/bsqp/kernels/sim.cuh:14-86)."""
+    B = f_ext_B.shape[0]
+    return sim_step(model, x.expand(B, -1), u.expand(B, -1), dt, f_ext_B,
+                    integrator_type)

@@ -29,8 +29,8 @@ class BSQPSettings:
     num_alphas: int = 8  # settings.h:15
     integrator_type: int = 2  # trapezoidal default, integrator.cuh:20
     adapt_rho: bool = True
-    linear_solver: str = "pcg"  # the reference's preconditioned CG; the
-    # direct block-tridiagonal solve ("btd") is not ported yet
+    linear_solver: str = "pcg"  # the reference's preconditioned CG, or
+    # "btd": the direct block-tridiagonal solve on the staged route
     kkt_tol: float = 1e-4  # accepted for parity; the reference's explicit
     # KKT-tolerance exit is disabled in its solve loop (bsqp.cuh:153)
     solve_kernel: str = "auto"  # "fused": one whole-iteration kernel per

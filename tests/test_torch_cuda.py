@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from gato_tpu_torch.api.common import figure8, rk4_step
+from gato_tpu_torch.api import BSQP, MPC_GATO, add_pendulum
+from gato_tpu_torch.api.common import _rk4_algorithms, figure8, rk4_step
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.ops.cost import CostParams
@@ -391,3 +392,85 @@ def test_staged_route_solves_past_128_knots(dev):
                           hp.drho, hp.mu, hp.pcg_tol, 0.01)
     torch.testing.assert_close(st.initial_merit, r[6], rtol=1e-5, atol=0)
     assert (st.ls_step_size == r[11]).double().mean() >= 0.75
+
+
+def test_facade_takes_one_bsqp_iter_launch_per_solve(dev):
+    """The BSQP facade on the card, its default device, at N=32 B=16
+    DEFAULT_SOLVER_PARAMS: one bsqp_iter launch a solve and no other
+    kernel's; its warm start, duals and rho equal bit for bit a direct
+    solve_batched call on the same inputs; the solve's device time by CUDA
+    events in the stats."""
+    B, N = 16, 32
+    p = _problem(dev, B, N, 23)
+    fac = BSQP(plant_type="indy7", batch_size=B, N=N, dt=0.01, **{k: P[k] for k in (
+        "max_sqp_iters", "max_pcg_iters", "pcg_tol", "mu", "q_cost", "qd_cost", "u_cost",
+        "N_cost", "q_lim_cost", "rho")})
+    assert fac.device.type == "cuda"
+    fac.set_f_ext_B(p["f_ext"])
+    fac.XU_B, fac.lam = fac._flatten(p["X"], p["U"]), p["lam"].clone()
+    xcur, ref = p["x_s"].cpu().numpy(), p["ref"].cpu().numpy()
+    XU_in = fac.XU_B.copy()
+    XU_in[:, :12] = xcur
+    hp0, lam0 = fac.hp, fac.lam
+    wrappers = (setup_kkt_batched_cuda, pcg_solve_batched_cuda, merit_alphas_batched_cuda,
+                sqp_iter_core_cuda, rk4_step_batched, sqp_iter_cuda)
+    before = [w.launches for w in wrappers]
+    XU, _ = fac.solve(xcur, ref)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 0, 0, 0, 1]
+    X, U = fac._unflatten(XU_in)
+    Xo, Uo, lamo, hpo, _ = solve_batched(
+        fac.model, fac.settings, fac.cost_params, hp0, X, U, lam0,
+        torch.tensor(xcur, device=dev), torch.tensor(ref, device=dev), fac.f_ext_B, 0.01)
+    np.testing.assert_array_equal(XU, fac._flatten(Xo, Uo))
+    assert torch.equal(fac.lam, lamo) and torch.equal(fac.hp.rho, hpo.rho)
+    assert fac.stats["sqp_time_us_device"] > 0
+    assert fac.stats["pcg_iters"].shape == (1, B)
+
+
+def test_rk4_step_routes_on_card(dev):
+    """api.common.rk4_step on the card: indy7 without a world wrench
+    launches the rk4 kernel once and equals rk4_step_batched bit for bit; a
+    world wrench, or the pendulum plant (no generated CUDA), launches no
+    kernel and takes the rigid-body algorithms, within rtol 1e-4 of the
+    same algorithms in float64 on the CPU (float32 forward dynamics)."""
+    m = load_robot("indy7", torch.float32, dev)
+    rng = np.random.default_rng(29)
+    x, u = _rand(rng, -1, 1, (12,), dev), _rand(rng, -5, 5, (6,), dev)
+    before = rk4_step_batched.launches
+    out = rk4_step(m, x, u, 0.01, substeps=2)
+    torch.cuda.synchronize()
+    assert rk4_step_batched.launches == before + 1
+    assert torch.equal(out, rk4_step_batched(m, x[None], u[None], 0.01, substeps=2)[0])
+    w = torch.tensor([0.0, 0.0, -60.0, 1.0, 0.0, 0.0], device=dev)
+    m64 = load_robot("indy7", torch.float64, "cpu")
+    pend = add_pendulum(m)
+    xp, up = _rand(rng, -0.5, 0.5, (18,), dev), _rand(rng, -5, 5, (9,), dev)
+    for model, model64, xs, us, wrench in ((m, m64, x, u, w),
+                                           (pend, add_pendulum(m64), xp, up, None)):
+        before = rk4_step_batched.launches
+        got = rk4_step(model, xs, us, 0.01, f_ext_world=wrench, substeps=2)
+        torch.cuda.synchronize()
+        assert rk4_step_batched.launches == before
+        want = _rk4_algorithms(model64, xs.cpu().double(), us.cpu().double(), 0.01,
+                               None if wrench is None else wrench.cpu().double(), 2)
+        assert torch.isfinite(got).all()
+        assert (got.cpu().double() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_mpc_graphed_plant_step_equals_eager(dev):
+    """MPC_GATO under a world wrench replays its plant step (the rigid-body
+    algorithms) from a CUDA graph: the same states bit for bit as the
+    eager step, over 20 cycles of the fig-8 loop (N=8, B=4)."""
+    x0 = np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)]).astype(np.float32)
+    runs = []
+    for graphed in (True, False):
+        mpc = MPC_GATO(plant_type="indy7", N=8, dt=0.01, batch_size=4,
+                       constant_f_ext=[0.0, 0.0, -60.0, 0.0, 0.0, 0.0])
+        assert mpc._graphs == {}
+        if not graphed:
+            mpc._graphs = None
+        _, stats = mpc.run_mpc_fig8(x0, figure8(0.01), sim_dt=1e-3, sim_time=0.2)
+        runs.append(np.asarray(stats["joint_positions"]))
+    assert np.isfinite(runs[0]).all()
+    np.testing.assert_array_equal(runs[0], runs[1])

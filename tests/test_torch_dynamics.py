@@ -105,11 +105,17 @@ def test_model_from_numpy_refuses_arrays_of_another_robot():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port, and chip_smoke.py, leaves jax and
+    the JAX package out of sys.modules."""
     code = ("import pkgutil, importlib, sys, gato_tpu_torch\n"
-            "for m in pkgutil.walk_packages(gato_tpu_torch.__path__, "
-            "'gato_tpu_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in pkgutil.walk_packages(gato_tpu_torch.__path__, "
+            "'gato_tpu_torch.')]\n"
+            "for name in names + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
+            "for name in ('dynamics.spatial', 'dynamics.algorithms', 'native', "
+            "'ops.integrators', 'ops.merit', 'ops.btd_solve', 'api.interface', "
+            "'api.mpc', 'api.force_estimator'):\n"
+            "    assert 'gato_tpu_torch.' + name in names, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gato_tpu' or m.startswith('gato_tpu.')]\n"
             "assert not bad, bad\n")

@@ -66,14 +66,16 @@ def test_rk4_step_matches_jax_rk4_step():
 def test_rk4_wrapper_takes_the_plain_path_only_on_cpu():
     """A tensor that is not on the CPU never falls back to the plain
     version: it is checked for the kernel and refused (here a 'meta'
-    tensor); a plant without generated CUDA dynamics is refused."""
+    tensor), through the wrapper and through api.common.rk4_step, which
+    routes a plant with generated CUDA dynamics and no world wrench to the
+    kernel; a plant without generated CUDA dynamics is refused by the
+    kernel wrapper."""
     m = load_robot("indy7", torch.float32, device="cpu")
     x = torch.empty(2, 12, device="meta")
     u = torch.empty(2, 6, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         rk4_step_batched(m, x, u, DT)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rk4_step(m, x[0], u[0], DT)
     with pytest.raises(NotImplementedError, match="iiwa14"):
         require_cuda_robot(load_robot("iiwa14", torch.float32, device="cpu"))
-    with pytest.raises(NotImplementedError, match="world-frame"):
-        rk4_step(m, torch.zeros(12), torch.zeros(6), DT,
-                 f_ext_world=torch.zeros(6))
