@@ -29,7 +29,18 @@ cycle.
                 2 s, where rk4 launches once per plant-step call) and goal
                 loop (`[goals]`: N=32 B=1, one goal 5 cm away);
   long horizon  N=256, B=64, where "auto" takes the staged route by itself:
-                6 warm-up and 10 timed cycles.
+                6 warm-up and 10 timed cycles;
+  rollouts      the on-device closed loops (gato_tpu_torch.api.rollout),
+                each cycle captured once into a CUDA graph and replayed,
+                equal bit for bit to the same cycles run eagerly:
+                `[rollout]` (closed_loop_rollout on the main path's shape,
+                200 cycles), `[rollout-estimator]` (the sphere search and
+                the Gauss-Newton observer at examples/force_adaptive.py's
+                working point and at N=32 B=512), `[rollout-goals]` (three
+                goals with the pendulum plant) and `[runner]`
+                (ExperimentRunner at B = 1, 32, 128, 512). rk4's wrench
+                branch is held against its plain version first (`[compare]
+                rk4 ... with a wrench`).
 
 The pcg kernel comes in variants (layout, G, C): one CTA per problem with
 its blocks in shared memory, a thread-block cluster of C CTAs per problem,
@@ -113,13 +124,16 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 from gato_tpu_torch import _build
-from gato_tpu_torch.api import BSQP, MPC_GATO
-from gato_tpu_torch.api.common import figure8, rk4_step
+from gato_tpu_torch.api import BSQP, MPC_GATO, ExperimentRunner, add_pendulum
+from gato_tpu_torch.api import rollout as rollout_mod
+from gato_tpu_torch.api.common import figure8, rk4_step, world_wrench_to_ee_frame
+from gato_tpu_torch.api.config import PENDULUM_DEFAULT_PARAMS
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
@@ -150,7 +164,7 @@ from gato_tpu_torch.ops.merit_fast import _get_cd, merit_alphas_batched
 from gato_tpu_torch.ops.pcg import pcg_solve_batched
 from gato_tpu_torch.ops.schur import build_schur
 from gato_tpu_torch.robots.model import load_robot
-from gato_tpu_torch.dynamics.algorithms import ee_position
+from gato_tpu_torch.dynamics.algorithms import ee_position, fk
 from gato_tpu_torch.solver import bsqp as bsqp_mod
 from gato_tpu_torch.solver.bsqp import select_route, sim_forward_batched, solve_batched
 from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
@@ -212,6 +226,25 @@ FACADE_ITERS, SIM_RTOL, EE_RTOL = 5, 1e-4, 1e-5
 # [mpc]: the README's quick start (MPC_GATO N=32, B=32, -60 N world z,
 # sim_dt 1e-3, 5 s); and B=1 without a wrench for MPC_B1_TIME s
 MPC_WRENCH, MPC_TIME, MPC_B1_TIME = (0.0, 0.0, -60.0, 0.0, 0.0, 0.0), 5.0, 2.0
+# the on-device rollouts (gato_tpu_torch.api.rollout), each cycle one CUDA
+# graph: [rollout] closed_loop_rollout on the main path's shape over
+# ROLLOUT_STEPS cycles (mean EE error below TRACK_MAX_M; with every
+# hypothesis zero, each window below TRACK_MAX_M); every rollout's
+# graph replays equal its eager cycles bit for bit over the first
+# ROLLOUT_SAME. [rollout-estimator]: examples/force_adaptive.py's working
+# point (indy7, EST_N, EST_B, EST_STEPS cycles under EST_WRENCH, the
+# observer's final force error below OBSERVER_FORCE_MAX N, the EE hold over
+# the last 10 cycles below HOLD_MAX m in both modes), then at N=32 B=512.
+# [rollout-goals]: the pendulum plant, GOALS in metres from the start EE,
+# GOAL_TIMEOUT s each. [runner]: ExperimentRunner at RUNNER_BATCHES.
+ROLLOUT_STEPS, ROLLOUT_SAME = K_GATE, 20
+EST_N, EST_B, EST_STEPS, EST_PCG = 8, 16, 150, 30
+EST_WRENCH = (12.0, -8.0, 5.0, 0.0, 0.0, 0.0)
+EST_Q0 = (-1.0966, -0.099, 0.8313, -0.109, 0.497, 0.015)
+OBSERVER_FORCE_MAX, HOLD_MAX = 0.1, 0.05
+GOALS = ((0.05, 0.0, 0.0), (0.0, 0.07, -0.03), (-0.06, 0.03, 0.05))
+GOALS_B, GOAL_TIMEOUT, GOALS_CONTROL_DT = 32, 2.0, 0.002
+RUNNER_BATCHES, RUNNER_TIME = (1, 32, 128, 512), 1.0
 # kkt: each KKTSystem tensor within KKT_RTOL of its largest |value|
 # (identical float32 inputs; only the order of operations differs).
 # merit: each (lane, alpha) merit within MERIT_ALPHA_RTOL, relative (the
@@ -733,6 +766,29 @@ def compare_rk4(f, state):
             f"tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
         if not (torch.isfinite(k).all() and errs[v] <= tol):
             raise RuntimeError(f"rk4 kernel ({v}) disagrees with its plain version")
+    # the wrench branch (f_ext, the EE-frame wrench the estimator rollout
+    # steps its plant under): B = 1 with the rollout's world wrench in the EE
+    # frame at this state, B = 512 with per-lane wrenches as f.f_ext's
+    g = torch.Generator().manual_seed(5)
+    fe1 = world_wrench_to_ee_frame(f.model, x[0, :6], torch.tensor(
+        EST_WRENCH, device=f.dev))[None].contiguous()
+    xw = (torch.rand(B, 12, generator=g).to(f.dev) * 2 - 1)
+    uw = (torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5)
+    few = (torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5)
+    for b, (xb, ub, fb) in ((1, (x, u, fe1)), (B, (xw, uw, few))):
+        p = rk4_plain(f.model, xb, ub, DT, fb, RK4_SUBSTEPS)
+        tol = RK4_RTOL * p.abs().max().item()
+        for v in (cuda_sim.DEFAULT,) + tuple(v for v in cuda_sim.VARIANTS if v != cuda_sim.DEFAULT):
+            k = rk4_step_batched(f.model, xb, ub, DT, fb, RK4_SUBSTEPS, variant=v)
+            torch.cuda.synchronize()
+            err = (k - p).abs().max().item()
+            log(f"[compare] rk4 kernel ({v}) vs rk4_channels with a wrench (B={b}, "
+                f"{RK4_SUBSTEPS} substeps, EE-frame f_ext: "
+                f"{'the estimator rollout world wrench ' + str(list(EST_WRENCH)) + ' N at the state' if b == 1 else 'uniform in +-5 per lane'}): "
+                f"max abs err {err:.3e}, tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
+            if not (torch.isfinite(k).all() and err <= tol):
+                raise RuntimeError(f"rk4 kernel ({v}) with a wrench disagrees with its plain "
+                                   f"version at B={b}")
     # crba runs fd's own expressions, split over two warps: against the
     # one-thread kernel it differs only where ptxas fuses a multiply-add in
     # one kernel and not in the other, which depends on the code around it
@@ -1896,6 +1952,293 @@ def goals_phase(card):
         raise RuntimeError("[goals] failed")
 
 
+def ready_state(dev):
+    x0 = np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)])
+    return torch.tensor(x0, dtype=torch.float32, device=dev)
+
+
+def graph_against_eager(tag, call, want_launches, card, before_loop=0):
+    """call(n_steps, graph) -> the rollout's outputs. Runs the rollout from
+    its CUDA graph over its n_steps (launches counted from zero), then
+    eagerly over ROLLOUT_SAME cycles. Held: the captured cycle's launches
+    equal want_launches and the warm-up cycle and the capture launched
+    nothing else (but before_loop bsqp_iter launches of a solve before the
+    loop); the first ROLLOUT_SAME cycles equal bit for bit. Returns
+    (outputs, replay ms a cycle, eager ms a cycle, launches)."""
+    reset_launches()
+    out = call(True)
+    torch.cuda.synchronize()
+    got = launches()
+    cap = rollout_mod.last_capture
+    n = out[0].shape[0]
+    replay_ms = cap["events"][0].elapsed_time(cap["events"][1]) / n
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    eager = call(False)
+    e1.record()
+    torch.cuda.synchronize()
+    eager_ms = e0.elapsed_time(e1) / ROLLOUT_SAME
+    pairs = [(i, a[:ROLLOUT_SAME], b) for i, (a, b) in enumerate(zip(out, eager))
+             if a.dim() and a.shape[0] == n]
+    same = all(torch.equal(a, b) for _, a, b in pairs)
+    if not same:
+        for i, a, b in pairs:
+            d = (a.double() - b.double()).abs().reshape(ROLLOUT_SAME, -1).amax(1)
+            first = int(torch.nonzero(d).min()) if bool((d > 0).any()) else None
+            log(f"[{tag}] output {i}: first cycle that differs {first}, per-cycle largest "
+                f"difference {[float(v) for v in d]}")
+    whole = {name: 2 * want_launches.get(name, 0) for name in WRAPPERS}
+    whole["bsqp_iter"] += before_loop
+    log(f"[{tag}] {card}: the captured cycle holds launches {cap['launches']} (expected "
+        f"{want_launches}); warm-up cycle and capture launched {got}; graph replays equal "
+        f"the eager cycles bit for bit over the first {ROLLOUT_SAME}: {same}; "
+        f"{replay_ms:.4f} ms a cycle over {n} replays (CUDA events), eager "
+        f"{eager_ms:.3f} ms a cycle over {ROLLOUT_SAME}")
+    if not (cap["launches"] == want_launches and got == whole and same):
+        raise RuntimeError(f"[{tag}] the graph's launches or its cycles are not the eager ones")
+    return out, replay_ms, eager_ms, got
+
+
+def rollout_phase(f, card, default_cycle_ms):
+    """[rollout]: closed_loop_rollout at the main path's shape (indy7, N=32,
+    B=512, DEFAULT_SOLVER_PARAMS, f.f_ext's wrench hypotheses with lane 0
+    zero, the fig-8 windows, control_dt 0.01, 2 substeps) over ROLLOUT_STEPS
+    cycles from the ready start. Held: graph against eager, one bsqp_iter
+    and one rk4 launch a cycle, finite states, the mean EE error against the
+    knot each cycle steers to below TRACK_MAX_M. The witness: the same
+    rollout with every hypothesis zero, so that every lane plans for the
+    true (wrench-free) plant and the one-step prediction cannot pick a
+    phantom wrench; held: each of its GATE_WINDOWS windows below
+    TRACK_MAX_M, the main path's gate. The hypotheses' windows are printed
+    beside it: the late windows' growth is the lane choice's (PERF.md)."""
+    refs = torch.stack([f.traj[k:k + f.N] for k in range(ROLLOUT_STEPS)])
+    x0 = ready_state(f.dev)
+
+    def call(graph, f_ext=f.f_ext):
+        n = ROLLOUT_STEPS if graph else ROLLOUT_SAME
+        return rollout_mod.closed_loop_rollout(
+            f.model, f.model, f.settings, f.cp, f.hp, x0, refs[:n], f_ext, DT, DT,
+            sim_substeps=2, graph=graph)
+
+    (xs, ees, us), replay_ms, eager_ms, _ = graph_against_eager(
+        "rollout", call, dict(bsqp_iter=P["max_sqp_iters"], rk4=1), card)
+    err = (ees - refs[:, 1, :3]).norm(dim=1)
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(us).all())
+    xs0, ees0, _ = call(True, torch.zeros_like(f.f_ext))
+    err0 = (ees0 - refs[:, 1, :3]).norm(dim=1)
+    win, win0 = windows(err), windows(err0)
+    finite0 = bool(torch.isfinite(xs0).all())
+    log(f"[rollout] {card}: closed_loop_rollout(indy7, N={f.N}, B={f.B}) over {ROLLOUT_STEPS} "
+        f"cycles: EE error mean {err.mean().item():.5f} m, max {err.max().item():.5f}, in "
+        f"{GATE_WINDOWS} windows of {ROLLOUT_STEPS // GATE_WINDOWS} cycles "
+        f"{[round(e, 5) for e in win]} m (limit on the mean {TRACK_MAX_M} m); states "
+        f"finite {finite}; {replay_ms:.4f} ms a cycle from the graph, {eager_ms:.3f} ms "
+        f"eager, against the default cycle's {default_cycle_ms:.3f} ms in this run. Witness, "
+        f"every hypothesis zero: mean {err0.mean().item():.5f} m, windows "
+        f"{[round(e, 5) for e in win0]} m (limit on each {TRACK_MAX_M} m); states finite "
+        f"{finite0}")
+    if not (finite and err.mean().item() < TRACK_MAX_M and finite0
+            and max(win0) < TRACK_MAX_M):
+        raise RuntimeError("[rollout] failed")
+    return replay_ms
+
+
+def estimator_setup(dev, n, b, max_pcg_iters):
+    """(model, settings, cost, hyperparameters, x0, hold point, true wrench,
+    refs, draws) of the estimator rollout at horizon n and batch b: one SQP
+    iteration and DEFAULT_SOLVER_PARAMS's costs and hyperparameters, which
+    are examples/force_adaptive.py's working point's but for its
+    max_pcg_iters (30 there, 200 here)."""
+    model = load_robot("indy7", torch.float32, dev)
+    cp = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
+                                         "q_lim_cost", "vel_lim_cost", "ctrl_lim_cost")})
+    settings = BSQPSettings(N=n, max_sqp_iters=1, max_pcg_iters=max_pcg_iters)
+    hp = HyperParams.create(b, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"], device=dev)
+    q0 = torch.tensor(EST_Q0, dtype=torch.float32, device=dev)
+    x0 = torch.cat([q0, torch.zeros_like(q0)])
+    hold = fk(model, q0)[1][-1]
+    refs = torch.cat([hold, torch.zeros(3, device=dev)]).expand(EST_STEPS, n, 6).contiguous()
+    draws = torch.rand(EST_STEPS, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    return (model, settings, cp, hp, x0, hold, torch.tensor(EST_WRENCH, device=dev), refs,
+            draws)
+
+
+def estimator_reading(out, hold, true_w):
+    """(force error of the last estimate, EE hold error over the last 10
+    cycles, states finite) of closed_loop_rollout_estimator's outputs."""
+    xs, ees, fests, _ = out
+    return ((fests[-1, :3] - true_w[:3]).norm().item(),
+            (ees[-10:] - hold).norm(dim=1).mean().item(),
+            bool(torch.isfinite(xs).all() and torch.isfinite(fests).all()))
+
+
+def estimator_phase(dev, card):
+    """[rollout-estimator]: closed_loop_rollout_estimator, sphere and
+    observer, at examples/force_adaptive.py's working point (indy7 N=8 B=16,
+    EST_STEPS cycles, 2 substeps, max_pcg_iters 30), then at N=32 B=512 with
+    max_pcg_iters 200 (estimator_setup: DEFAULT_SOLVER_PARAMS in both but
+    for max_pcg_iters at N=8). Held: graph against eager at the first shape;
+    finite states; the EE hold over the last 10 cycles below HOLD_MAX m; the
+    observer's final force error below OBSERVER_FORCE_MAX N at the first
+    shape."""
+    res = {}
+    for n, b, mpcg in ((EST_N, EST_B, EST_PCG), (N, B, P["max_pcg_iters"])):
+        model, settings, cp, hp, x0, hold, true_w, refs, draws = estimator_setup(dev, n, b,
+                                                                                 mpcg)
+        for mode in ("sphere", "observer"):
+            def call(graph):
+                k = EST_STEPS if graph else ROLLOUT_SAME
+                return rollout_mod.closed_loop_rollout_estimator(
+                    model, settings, cp, hp, x0, refs[:k], true_w, DT, DT, b, draws[:k],
+                    sim_substeps=2, estimator=mode, graph=graph)
+
+            if n == EST_N:
+                out, replay_ms, eager_ms, _ = graph_against_eager(
+                    f"rollout-estimator {mode} N={n} B={b}", call, dict(bsqp_iter=1, rk4=1),
+                    card)
+            else:
+                reset_launches()
+                out = call(True)
+                torch.cuda.synchronize()
+                cap = rollout_mod.last_capture
+                replay_ms = cap["events"][0].elapsed_time(cap["events"][1]) / EST_STEPS
+                eager_ms = float("nan")
+                if cap["launches"] != dict(bsqp_iter=1, rk4=1):
+                    raise RuntimeError(f"[rollout-estimator] captured {cap['launches']}")
+            force_err, hold_err, finite = estimator_reading(out, hold, true_w)
+            fests, errs = out[2], out[3]
+            res[(mode, n)] = dict(force_err=force_err, hold=hold_err, replay_ms=replay_ms)
+            log(f"[rollout-estimator] {card}: {mode}, indy7 N={n} B={b}, {EST_STEPS} cycles "
+                f"under {list(EST_WRENCH)} N, max_pcg_iters {mpcg}: final estimate "
+                f"{[round(v, 4) for v in fests[-1].tolist()]}, "
+                f"force error {force_err:.4f} N; EE hold over the last 10 cycles "
+                f"{hold_err:.5f} m (limit {HOLD_MAX}); least prediction error, last cycle "
+                f"{errs[-1].item():.3e}; states finite {finite}; {replay_ms:.4f} ms a cycle "
+                f"from the graph, {eager_ms:.3f} ms eager")
+            held = finite and hold_err < HOLD_MAX and (
+                mode != "observer" or n != EST_N or force_err < OBSERVER_FORCE_MAX)
+            if not held:
+                raise RuntimeError(f"[rollout-estimator] {mode} at N={n} B={b} failed")
+    return res
+
+
+def plain_solve(model, settings, cp, hp, X, U, lam, x_s, ref, f_ext, dt, device_exit=False):
+    """solve_batched's (X, U, lam, -, -) on the plain route: the chained
+    driver over sqp_iter_reference."""
+    o = sqp_solve_chained(sqp_iter_reference, model, cp, settings, X, U, lam, x_s, ref,
+                          f_ext, hp.rho, hp.drho, hp.mu, hp.pcg_tol, dt)
+    return o[0], o[1], o[2], None, None
+
+
+def estimator_witness(dev, card):
+    """--estimator-witness: the sphere search at N=32 B=512 with the working
+    point's max_pcg_iters (EST_PCG) on the kernel route (from its CUDA
+    graph) and with the solve on the plain route (sqp_iter_reference,
+    eager; the plant on the rk4 kernel), and the kernel route again at
+    max_pcg_iters 200, over EST_STEPS cycles: each one's EE hold over the
+    last 10 cycles, the first cycle whose EE lies HOLD_MAX m or more from
+    the hold point, and the force error. Reported, not held."""
+    for mpcg, route in ((EST_PCG, "kernel"), (EST_PCG, "plain"),
+                        (P["max_pcg_iters"], "kernel")):
+        model, settings, cp, hp, x0, hold, true_w, refs, draws = estimator_setup(dev, N, B,
+                                                                                 mpcg)
+        t0 = time.perf_counter()
+        with (mock.patch.object(rollout_mod, "solve_batched", plain_solve)
+              if route == "plain" else contextlib.nullcontext()):
+            out = rollout_mod.closed_loop_rollout_estimator(
+                model, settings, cp, hp, x0, refs, true_w, DT, DT, B, draws,
+                sim_substeps=2, estimator="sphere", graph=route == "kernel")
+        torch.cuda.synchronize()
+        force_err, hold_err, finite = estimator_reading(out, hold, true_w)
+        away = torch.nonzero((out[1] - hold).norm(dim=1) >= HOLD_MAX)
+        first = int(away[0]) if away.numel() else None
+        log(f"[estimator-witness] {card}: sphere, indy7 N={N} B={B}, max_pcg_iters {mpcg}, "
+            f"{route} route, {EST_STEPS} cycles in {time.perf_counter() - t0:.1f} s: EE hold "
+            f"over the last 10 cycles {hold_err:.5f} m, first cycle {HOLD_MAX} m or more "
+            f"from the hold point {first}, force error {force_err:.4f} N, states finite "
+            f"{finite}")
+
+
+def goals_rollout_phase(dev, card):
+    """[rollout-goals]: closed_loop_rollout_goals with the indy7 solver
+    plant and add_pendulum(indy7) as the plant (PENDULUM_DEFAULT_PARAMS),
+    N=32 B=32 (the sphere estimator over 29 exploration lanes), three goals
+    5-10 cm from the start EE, GOAL_TIMEOUT s each, enough cycles for every
+    goal to resolve, at examples/pickplace.py's control_dt of 2 ms (at 10 ms
+    the 15 kg pendulum on indy7 diverges within 12 cycles, on the CPU's plain
+    route too, with or without the estimator). Held: graph against eager (the pendulum plant steps on
+    the rigid-body algorithms inside the graph: one bsqp_iter launch a
+    cycle, no rk4), every goal reached or timed out, finite states."""
+    model = load_robot("indy7", torch.float32, dev)
+    pend = PENDULUM_DEFAULT_PARAMS
+    sim = add_pendulum(model, mass=pend["mass"], length=pend["length"])
+    x_sim0 = torch.zeros(2 * sim.nq, device=dev)
+    x_sim0[:6] = ready_state(dev)[:6]
+    x_sim0[6:9] = torch.tensor(pend["initial_angle"], dtype=torch.float32, device=dev)
+    goals = fk(model, x_sim0[:6])[1][-1] + torch.tensor(GOALS, device=dev)
+    settings = BSQPSettings(N=N, max_sqp_iters=P["max_sqp_iters"],
+                            max_pcg_iters=P["max_pcg_iters"])
+    cp = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
+                                         "q_lim_cost", "vel_lim_cost", "ctrl_lim_cost")})
+    hp = HyperParams.create(GOALS_B, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"],
+                            device=dev)
+    n_steps = int(np.ceil(GOAL_TIMEOUT * len(GOALS) / GOALS_CONTROL_DT)) + 2
+    draws = torch.rand(n_steps, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def call(graph):
+        k = n_steps if graph else ROLLOUT_SAME
+        return rollout_mod.closed_loop_rollout_goals(
+            model, sim, settings, cp, hp, x_sim0, goals, DT, GOALS_CONTROL_DT, draws[:k],
+            GOALS_B, k,
+            goal_timeout=GOAL_TIMEOUT, sim_substeps=2, pendulum_damping=pend["damping"],
+            graph=graph)
+
+    out, replay_ms, eager_ms, _ = graph_against_eager(
+        "rollout-goals", call, dict(bsqp_iter=P["max_sqp_iters"], rk4=0), card,
+        before_loop=P["max_sqp_iters"])
+    xs, ees, dists, gidx, bests, outcomes, reached_t = out[:7]
+    finite = bool(torch.isfinite(xs).all())
+    oc = outcomes.tolist()
+    log(f"[rollout-goals] {card}: indy7 + pendulum plant, N={N} B={GOALS_B}, "
+        f"{len(GOALS)} goals {[round(float(v), 3) for v in torch.tensor(GOALS).norm(dim=1)]} m "
+        f"away, control_dt {GOALS_CONTROL_DT} s, {n_steps} cycles: outcomes {oc} (1 "
+        f"reached, 2 timeout), reached at "
+        f"{[round(v, 3) for v in reached_t.tolist()]} s, last distance {dists[-1].item():.4f} "
+        f"m, lanes chosen other than 0 on {int((bests != 0).sum())} cycles; states finite "
+        f"{finite}; {replay_ms:.4f} ms a cycle from the graph, {eager_ms:.3f} ms eager")
+    if not (finite and all(o in (1, 2) for o in oc)):
+        raise RuntimeError("[rollout-goals] failed")
+    return replay_ms
+
+
+def runner_phase(card):
+    """[runner]: ExperimentRunner (the fig-8 loop of MPC_GATO per batch
+    size) at RUNNER_BATCHES, N=32, RUNNER_TIME s of simulation, no wrench.
+    Held: every row's error and solve time finite."""
+    runner = ExperimentRunner(plant_type="indy7", N=N, dt=DT, batch_sizes=list(RUNNER_BATCHES),
+                              sim_time=RUNNER_TIME)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        runner.run_batch_experiments(verbose=False)
+    rows = runner.summary()
+    for r in rows:
+        log(f"[runner] {card}: " + ", ".join(
+            f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+    log(f"[runner] {len(rows)} batch sizes in {time.perf_counter() - t0:.1f} s")
+    if len(rows) != len(RUNNER_BATCHES) or not all(
+            np.isfinite(r["avg_error_m"]) and np.isfinite(r["avg_solve_ms"]) for r in rows):
+        raise RuntimeError("[runner] failed")
+    return rows
+
+
+def rollout_phases(f, dev, card, default_cycle_ms):
+    """The rollouts, each cycle one CUDA graph, and the experiment runner."""
+    rollout_phase(f, card, default_cycle_ms)
+    estimator_phase(dev, card)
+    goals_rollout_phase(dev, card)
+    runner_phase(card)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--save-capped", metavar="PATH",
@@ -1905,6 +2248,13 @@ def main(argv=None):
                         help="only build csrc/rk4.cu with and without multiply-add "
                              "fusion and print how far its variants differ "
                              "(fusion_probe), then stop")
+    parser.add_argument("--rollouts", action="store_true",
+                        help="only build the kernels, hold rk4's wrench branch and run the "
+                             "rollout, estimator, goals and runner phases, then stop")
+    parser.add_argument("--estimator-witness", action="store_true",
+                        help="only build the kernels and run the sphere search at N=32 "
+                             "B=512 on the kernel and the plain route (estimator_witness), "
+                             "then stop")
     parser.add_argument("--tracking-spread", action="store_true",
                         help="only build the kernels and print the N=32 tracking gate "
                              "and step check on nearby inputs (tracking_spread), then stop")
@@ -1929,6 +2279,16 @@ def main(argv=None):
         return 0
     if args.tracking_spread:
         tracking_spread(dev, card)
+        return 0
+    if args.estimator_witness:
+        estimator_witness(dev, card)
+        return 0
+    if args.rollouts:
+        f = Fig8(dev)
+        state, i0 = f.steady_state()
+        compare_rk4(f, state)
+        rollout_phases(f, dev, card, statistics.median(
+            f.run(state, i0, f.solve_kernel, f.plant_kernel)[1]))
         return 0
     for name in _build.KERNELS:
         log(f"[build] ptxas {name}:\n{_build.ptxas_report(name).rstrip()}")
@@ -2096,6 +2456,8 @@ def main(argv=None):
     facade_phase(f, state, i0, card)
     mpc_phase(card)
     goals_phase(card)
+    # ---- the on-device rollouts, each cycle one CUDA graph ----
+    rollout_phases(f, dev, card, med_k)
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":

@@ -51,16 +51,18 @@ def world_wrench_to_ee_frame(model: RobotModel, q, w_world):
 
 
 def _rk4_algorithms(model: RobotModel, x, u, dt: float, f_ext_world,
-                    substeps: int):
+                    substeps: int, f_ext=None):
     """RK4 on the rigid-body algorithms (fk + fd), the counterpart of the
     JAX package's XLA rk4_step: the world wrench is re-expressed in the EE
-    frame at each of the four stage evaluations."""
+    frame at each of the four stage evaluations. `f_ext` (..., 6) is an
+    EE-frame wrench held constant over the step instead (the JAX package's
+    api/rollout.py::_rk4)."""
     nq = model.nq
 
     def deriv(x):
         q, qd = x[..., :nq], x[..., nq:]
         E, r, R_link = joint_transforms(model, q)
-        fe = None
+        fe = f_ext
         if f_ext_world is not None:
             fe = _ee_frame(fk(model, q, R_link=R_link)[0][..., -1, :, :], f_ext_world)
         return torch.cat([qd, fd(model, q, qd, u, f_ext=fe, transforms=(E, r))], -1)

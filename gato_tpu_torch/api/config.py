@@ -6,6 +6,18 @@ imported without jax): the reference's python/bsqp/config.py knobs.
 
 import numpy as np
 
+STANDARD_BATCH_SIZES = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024]
+EXPERIMENT_BATCH_SIZES = [1, 4, 8, 16, 32, 64, 128]
+
+FIG8_DEFAULT_PARAMS = {
+    "A_x": 0.4,
+    "A_z": 0.4,
+    "offset": [0.0, 0.5, 0.6],
+    "period": 6,
+    "cycles": 5,
+    "theta": np.pi / 4,
+}
+
 INDY7_START_CONFIGS = {
     "zero": np.zeros(6),
     "home": np.zeros(6),
@@ -41,4 +53,11 @@ DEFAULT_SOLVER_PARAMS = {
     "vel_lim_cost": 0.0,
     "ctrl_lim_cost": 0.0,
     "rho": 0.01,
+}
+
+PENDULUM_DEFAULT_PARAMS = {
+    "mass": 15.0,
+    "length": 0.3,
+    "damping": 0.4,
+    "initial_angle": np.array([0.3, 0.0, 0.0]),
 }

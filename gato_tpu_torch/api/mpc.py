@@ -28,6 +28,7 @@ from ..robots.urdf import spatial_inertia
 from .common import rk4_step, world_wrench_to_ee_frame
 from .config import DEFAULT_SOLVER_PARAMS
 from .force_estimator import ForceEstimator
+from .force_estimator_device import observer_update
 from .interface import BSQP
 
 
@@ -108,13 +109,8 @@ class MPC_GATO:
         estimator="sphere",
         device="cuda",
     ):
-        if estimator == "observer":
-            raise NotImplementedError(
-                "estimator='observer' (the Gauss-Newton wrench observer, "
-                "api/force_estimator_device.py) is not ported yet: ROADMAP "
-                "Queue 1 item 1")
-        if estimator != "sphere":
-            raise ValueError(f"estimator={estimator!r}: expected 'sphere'")
+        if estimator not in ("sphere", "observer"):
+            raise ValueError(f"estimator={estimator!r}: expected 'sphere' or 'observer'")
         cfg = dict(DEFAULT_SOLVER_PARAMS)
         if solver_params:
             cfg.update(solver_params)
@@ -160,11 +156,17 @@ class MPC_GATO:
         # launch and needs none
         self._graphs = ({} if self.device.type == "cuda" and (
             self._sim_fext is not None or self.sim_model.name not in CUDA_ROBOTS) else None)
+        # estimator="sphere": the reference's random-search ForceEstimator;
+        # "observer": the Gauss-Newton wrench observer
+        # (api/force_estimator_device.py), fed the previous cycle's
+        # transition under rk4_step's world-wrench path. Both need B > 1.
         self.estimator_mode = estimator
+        self._w_obs = np.zeros(6, np.float32)
         self.force_estimator = (ForceEstimator(
             batch_size=batch_size, initial_radius=5.0, min_radius=2.0,
             max_radius=20.0, smoothing_factor=0.5, seed=seed)
-            if batch_size > 1 else None)
+            if batch_size > 1 and estimator == "sphere" else None)
+        self._observer = batch_size > 1 and estimator == "observer"
 
     def _tensor(self, a):
         return torch.tensor(np.asarray(a, np.float32), device=self.device)
@@ -210,12 +212,26 @@ class MPC_GATO:
 
     def update_force_batch(self, q):
         """Hand the solver the estimator's wrench hypotheses, expressed in
-        the EE frame (mpc_controller.py:279-292)."""
-        if self.force_estimator is None:
+        the EE frame (mpc_controller.py:279-292). The observer's batch: lane
+        0 its estimate, lane 1 zero (the safe hypothesis), the rest copies."""
+        if self._observer:
+            batch = np.tile(self._w_obs, (self.batch_size, 1))
+            batch[1] = 0.0
+        elif self.force_estimator is None:
             return
+        else:
+            batch = self.force_estimator.generate_batch()
         self.solver.set_f_ext_B(world_wrench_to_ee_frame(
-            self.solver_model, self._tensor(q[:self.nq_robot]),
-            self._tensor(self.force_estimator.generate_batch())))
+            self.solver_model, self._tensor(q[:self.nq_robot]), self._tensor(batch)))
+
+    def _observe(self, w, x_last, u_last, x_meas, dt_cycle):
+        """One observer step on the transition (x_last, u_last) -> x_meas:
+        the prediction is rk4_step under the world wrench hypothesis, two
+        substeps over the cycle."""
+        def pred(wh):
+            return rk4_step(self.solver_model, x_last, u_last, dt_cycle, f_ext_world=wh,
+                            substeps=2)
+        return observer_update(pred, w, x_meas)
 
     def transform_force_to_gato_frame(self, q, f_world):
         """World wrench -> the solver's EE-frame [n; f] spatial force
@@ -226,7 +242,7 @@ class MPC_GATO:
     def evaluate_best_trajectory(self, x_last, u_last, x_curr, dt):
         """The hypothesis whose one-step rollout best matches the measured
         state (mpc_controller.py:294-309)."""
-        if self.force_estimator is None:
+        if self.force_estimator is None and not self._observer:
             return 0
         x_next = self.solver.sim_forward(x_last, u_last, dt)
         errors = np.linalg.norm(x_next - np.asarray(x_curr)[None, :], axis=1)
@@ -234,7 +250,12 @@ class MPC_GATO:
         # select: non-finite errors are out of the competition
         errors = np.where(np.isfinite(errors), errors, np.inf)
         best = int(np.argmin(errors))
-        self.force_estimator.update(best, errors, alpha=0.6, beta=0.5)
+        if self._observer:
+            self._w_obs = self._observe(
+                self._tensor(self._w_obs), self._tensor(x_last), self._tensor(u_last),
+                self._tensor(x_curr), float(np.float32(dt))).cpu().numpy()
+        else:
+            self.force_estimator.update(best, errors, alpha=0.6, beta=0.5)
         return best
 
     def _cycle_timestep(self, solve_time):

@@ -164,7 +164,12 @@ def mass_matrix_cholesky(model: RobotModel, q, transforms=None):
 
 
 def _chol_solve(L, b):
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    """x with L L^T x = b, by the two triangular solves of LAPACK's potrs
+    (equal bit for bit to torch.cholesky_solve on the CPU). On the card
+    torch.cholesky_solve of a batch takes MAGMA's batched potrs, which a
+    CUDA graph cannot capture; the triangular solves can be."""
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
 
 
 def fd(model: RobotModel, q, qd, tau, f_ext=None, transforms=None):

@@ -77,3 +77,14 @@ def bsqp_state_from_numpy(solver, XU_B, lam, hp, hp_init, f_ext_B):
     solver.f_ext_B = _tensor(f_ext_B, dtype, device)
     solver.hp = hyper_from_numpy(*hp, device=device, dtype=dtype)
     solver._hp_init = hyper_from_numpy(*hp_init, device=device, dtype=dtype)
+
+
+def fe_state_from_numpy(arrays: dict, device="cuda"):
+    """The wrench estimator's state (api.force_estimator_device.FEState)
+    from {field: numpy array}, a JAX FEState's fields, each in its own
+    dtype."""
+    from .api.force_estimator_device import FEState
+
+    device = check_device(device)
+    return FEState(**{f: torch.tensor(np.asarray(arrays[f]), device=device)
+                      for f in FEState.__dataclass_fields__})

@@ -28,7 +28,11 @@ route runs in plain PyTorch on the CPU. All run under
                       exit is decided between iterations, and the exiting
                       iteration's line-search effects are reverted (the
                       reference breaks after PCG/dz, before the merit
-                      kernel: bsqp.cuh:133-165).
+                      kernel: bsqp.cuh:133-165). With device_exit=True the
+                      exit stays on the device (the JAX package's
+                      lax.while_loop): every iteration runs and those after
+                      the exit are discarded, so a CUDA graph can hold the
+                      solve.
 """
 
 from __future__ import annotations
@@ -265,7 +269,7 @@ def _select(carry: IterState, new: IterState, exit_now, it0: bool):
 
 def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
                       settings: BSQPSettings, X, U, lam, x_s, ref, f_ext,
-                      rho, drho, mu, pcg_tol, dt: float):
+                      rho, drho, mu, pcg_tol, dt: float, device_exit: bool = False):
     """Run up to settings.max_sqp_iters iterations of `iter_fn` (one of the
     sqp_iter_* functions above) with the whole-batch exit:
     after each iteration, once the number of converged problems reaches
@@ -275,7 +279,10 @@ def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
     Returns (X, U, lam, rho, drho, conv, merit0, merit_final, sqp_iters (B,),
     pcg_iters (iters, B) int32, ls_merit (iters, B), ls_step (iters, B)).
     The exit test reads the device only between two iterations, never after
-    the last one."""
+    the last one. With device_exit=True it reads nothing: all
+    max_sqp_iters iterations run, a sticky flag on the device marks the
+    exit, and every iteration after it is discarded by torch.where; the
+    outputs equal the host-exit form's bit for bit."""
     B = X.shape[0]
     iters = settings.max_sqp_iters
     zero = torch.zeros(B, dtype=X.dtype, device=X.device)
@@ -285,14 +292,22 @@ def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
     lsm_all = torch.zeros(iters, B, dtype=X.dtype, device=X.device)
     lss_all = torch.zeros(iters, B, dtype=X.dtype, device=X.device)
     thresh = B * settings.solve_ratio
+    exited = torch.zeros((), dtype=torch.bool, device=X.device)
     for it in range(iters):
         new, stats = iter_fn(model, cp, prob, carry, settings, seeded=it > 0)
         exit_now = new.conv.sum() >= thresh
-        carry = _select(carry, new, exit_now, it0=it == 0)
-        pcg_all[it] = stats.pcg_iters
+        selected = _select(carry, new, exit_now, it0=it == 0)
+        pcg = stats.pcg_iters
+        if device_exit:
+            carry = IterState(*(torch.where(exited, a, b) for a, b in zip(carry, selected)))
+            pcg = torch.where(exited, 0, pcg)
+            exit_now = exited = exit_now | exited
+        else:
+            carry = selected
+        pcg_all[it] = pcg
         lsm_all[it] = torch.where(exit_now, 0.0, stats.ls_merit)
         lss_all[it] = torch.where(exit_now, 0.0, stats.ls_step)
-        if it + 1 < iters and bool(exit_now):
+        if not device_exit and it + 1 < iters and bool(exit_now):
             break
     return (carry.X, carry.U, carry.lam, carry.rho, carry.drho, carry.conv,
             carry.merit0, carry.mbase, carry.sqp, pcg_all, lsm_all, lss_all)

@@ -62,10 +62,14 @@ def select_route(solve_kernel: str, iter_kernel: str, N: int,
 
 
 def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
-                  hp: HyperParams, X, U, lam, x_s, ref, f_ext, dt: float):
+                  hp: HyperParams, X, U, lam, x_s, ref, f_ext, dt: float,
+                  device_exit: bool = False):
     """X (B,N,nx), U (B,N-1,nu), lam (B,N,nx) warm-started duals, x_s
     (B,nx), ref (B,N,6), f_ext (B,6) per-problem EE-frame wrench
-    hypotheses, dt a float. Returns (X, U, lam, hp_out, stats)."""
+    hypotheses, dt a float. Returns (X, U, lam, hp_out, stats).
+    device_exit=True keeps the whole-batch exit on the device (every
+    iteration runs, those after the exit are discarded; equal bit for bit),
+    so that a CUDA graph can hold the solve (api/rollout.py)."""
     if settings.linear_solver not in LINEAR_SOLVERS:
         raise ValueError(f"linear_solver={settings.linear_solver!r}: expected "
                          f"one of {LINEAR_SOLVERS}")
@@ -75,7 +79,7 @@ def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
     (Xo, Uo, lam_o, rho_o, _drho, conv, merit0, merit_f, sqp_iters, pcg_it,
      ls_merit, ls_step) = sqp_solve_chained(
         ITER_FNS[route], model, cp, settings, X, U, lam, x_s, ref, f_ext,
-        hp.rho, hp.drho, hp.mu, hp.pcg_tol, dt)
+        hp.rho, hp.drho, hp.mu, hp.pcg_tol, dt, device_exit=device_exit)
     # drho resets to its init after every solve (bsqp.cuh:189)
     hp_out = HyperParams(rho=rho_o, drho=hp.drho, mu=hp.mu, pcg_tol=hp.pcg_tol)
     sqp_iters = sqp_iters.to(torch.int32)

@@ -32,7 +32,7 @@ from gato_tpu_torch.api.common import world_wrench_to_ee_frame
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.interop import MODEL_FIELDS, bsqp_state_from_numpy
-from torch_port_helpers import models, t64
+from torch_port_helpers import jax_in_pieces, models, t64
 
 B, N = 4, 8
 FACADE = dict(plant_type="indy7", batch_size=B, N=N, dt=0.01, max_sqp_iters=2,
@@ -127,11 +127,13 @@ def test_bsqp_interface_stats_surface():
         BSQP(precision="half", device="cpu")
 
 
-def test_world_wrench_and_rk4_step_match_jax():
+def test_world_wrench_and_rk4_step_match_jax(monkeypatch):
     """The wrench [force; torque] in the EE frame for a batch of
     configurations, and rk4_step under a world wrench (the rigid-body
     algorithms path: the JAX package's XLA rk4_step; iiwa14's is held to
-    the native runtime in tests/test_torch_algorithms.py)."""
+    the native runtime in tests/test_torch_algorithms.py). The JAX
+    rk4_step's forward dynamics is compiled once (jax_in_pieces)."""
+    jax_in_pieces(monkeypatch)
     rng = np.random.default_rng(43)
     jm, tm = models("indy7")
     q = rng.uniform(-1.5, 1.5, (5, jm.nq))

@@ -474,3 +474,41 @@ def test_mpc_graphed_plant_step_equals_eager(dev):
         runs.append(np.asarray(stats["joint_positions"]))
     assert np.isfinite(runs[0]).all()
     np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("estimator", [None, "sphere", "observer"])
+def test_rollout_graph_replay_equals_eager(dev, estimator):
+    """The rollouts' cycles replayed from their CUDA graph against the same
+    cycles run eagerly, bit for bit (indy7, N=8, B=8, 12 cycles): the fig-8
+    rollout (one bsqp_iter and one rk4 launch in the captured cycle) and the
+    force-adaptive rollout in both modes (rk4 with a wrench)."""
+    from gato_tpu_torch.api import rollout as R
+
+    model = load_robot("indy7", torch.float32, dev)
+    n, b, steps = 8, 8, 12
+    settings = BSQPSettings(N=n, max_sqp_iters=1, max_pcg_iters=50)
+    cp = CostParams(q_cost=2.0, qd_cost=1e-2, u_cost=2e-6, N_cost=50.0, q_lim_cost=0.01)
+    hp = HyperParams.create(b, rho=0.01, mu=10.0, pcg_tol=1e-4, device=dev)
+    x0 = torch.tensor(np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)]),
+                      dtype=torch.float32, device=dev)
+    traj = torch.tensor(figure8(0.01).reshape(-1, 6), dtype=torch.float32, device=dev)
+    refs = torch.stack([traj[k:k + n] for k in range(steps)])
+    draws = torch.rand(steps, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    f_ext = torch.rand(b, 6, generator=torch.Generator().manual_seed(1)).to(dev) * 10 - 5
+    f_ext[0] = 0.0
+
+    def run(graph):
+        if estimator is None:
+            return R.closed_loop_rollout(model, model, settings, cp, hp, x0, refs, f_ext,
+                                         0.01, 0.01, sim_substeps=2, graph=graph)
+        return R.closed_loop_rollout_estimator(
+            model, settings, cp, hp, x0, refs, torch.tensor([12.0, -8.0, 5.0, 0, 0, 0], device=dev),
+            0.01, 0.01, b, draws, sim_substeps=2, estimator=estimator, graph=graph)
+
+    graphed = run(True)
+    torch.cuda.synchronize()
+    assert R.last_capture["launches"] == {"bsqp_iter": 1, "rk4": 1}
+    eager = run(False)
+    torch.cuda.synchronize()
+    for g, e in zip(graphed, eager):
+        assert torch.isfinite(g).all() and torch.equal(g, e)

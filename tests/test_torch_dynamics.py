@@ -114,7 +114,8 @@ def test_port_never_imports_jax():
             "    importlib.import_module(name)\n"
             "for name in ('dynamics.spatial', 'dynamics.algorithms', 'native', "
             "'ops.integrators', 'ops.merit', 'ops.btd_solve', 'api.interface', "
-            "'api.mpc', 'api.force_estimator'):\n"
+            "'api.mpc', 'api.force_estimator', 'api.force_estimator_device', "
+            "'api.rollout', 'api.experiment_runner'):\n"
             "    assert 'gato_tpu_torch.' + name in names, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gato_tpu' or m.startswith('gato_tpu.')]\n"

@@ -8,7 +8,8 @@ Tolerances: the same operations up to the order inside small matrix
 products and the factorisations: rtol 1e-9, atol 1e-9; the merit (a sum of
 O(10-1e3) terms) rtol 1e-10; the block-tridiagonal solve (Gauss-Jordan
 inverses in JAX, LU in torch, chained over 8 knots) rtol 1e-8, atol 1e-10,
-its iteration counts exactly.
+its iteration counts exactly. The JAX integrators and merit call their
+forward dynamics compiled once (torch_port_helpers.jax_in_pieces).
 """
 
 import jax
@@ -25,7 +26,7 @@ from gato_tpu.ops import merit as jmerit
 from gato_tpu.solver.bsqp import sim_forward_batched as jax_sim_forward_batched
 from gato_tpu_torch.ops import btd_solve, cost, integrators, kkt, merit
 from gato_tpu_torch.solver.bsqp import sim_forward_batched
-from torch_port_helpers import DEFAULT_COST, costs, models, t64
+from torch_port_helpers import DEFAULT_COST, costs, jax_in_pieces, models, t64
 
 B, N, DT = 4, 8, 0.01
 RTOL = ATOL = 1e-9
@@ -51,17 +52,28 @@ def _close(got, want, rtol=RTOL, atol=ATOL, msg=""):
                                    err_msg=msg)
 
 
-@pytest.mark.parametrize("itype", [0, 1, 2])
-def test_integrators_match_jax(setup, itype):
-    jm, tm, _, _, a = setup
-    x, u, xn, fe = (a["X"][:, 0], a["U"][:, 0], a["X"][:, 1], a["f_ext"])
+@pytest.fixture(scope="module")
+def jax_integrators(setup):
+    """The JAX side of every integrator type in one compiled program (the
+    three share their forward dynamics and its derivatives)."""
+    jm, _, _, _, a = setup
 
     def one(x, u, xn, fe):
-        return (jint.sim_step(jm, x, u, DT, fe, itype),
-                jint.defect(jm, x, u, xn, DT, fe, itype),
-                jint.linearize(jm, x, u, DT, fe, itype))
+        return [(jint.sim_step(jm, x, u, DT, fe, itype),
+                 jint.defect(jm, x, u, xn, DT, fe, itype),
+                 jint.linearize(jm, x, u, DT, fe, itype)) for itype in (0, 1, 2)]
 
-    ref = jax.jit(jax.vmap(one))(*map(jnp.asarray, (x, u, xn, fe)))
+    with pytest.MonkeyPatch.context() as mp:
+        jax_in_pieces(mp, jint)
+        return jax.block_until_ready(jax.jit(jax.vmap(one))(*map(jnp.asarray, (
+            a["X"][:, 0], a["U"][:, 0], a["X"][:, 1], a["f_ext"]))))
+
+
+@pytest.mark.parametrize("itype", [0, 1, 2])
+def test_integrators_match_jax(setup, jax_integrators, itype):
+    jm, tm, _, _, a = setup
+    x, u, xn, fe = (a["X"][:, 0], a["U"][:, 0], a["X"][:, 1], a["f_ext"])
+    ref = jax_integrators[itype]
     x, u, xn, fe = map(t64, (x, u, xn, fe))
     out = (integrators.sim_step(tm, x, u, DT, fe, itype),
            integrators.defect(tm, x, u, xn, DT, fe, itype),
@@ -69,9 +81,10 @@ def test_integrators_match_jax(setup, itype):
     _close(out, ref, msg=f"integrator {itype}")
 
 
-def test_knot_cost_and_kkt_setup_match_jax(setup):
+def test_knot_cost_and_kkt_setup_match_jax(setup, monkeypatch):
     """knot_cost, knot_cost_grad_hess (both kinds of knot) and the array
     setup_kkt, batched over problems (and knots)."""
+    jax_in_pieces(monkeypatch, jint)
     jm, tm, jcp, tcp, a = setup
     ja = {k: jnp.asarray(v) for k, v in a.items()}
 
@@ -95,9 +108,10 @@ def test_knot_cost_and_kkt_setup_match_jax(setup):
     _close(out[4], (jk.Q, jk.q, jk.R, jk.r, jk.A, jk.B, jk.c), msg="setup_kkt")
 
 
-def test_merit_and_sim_forward_match_jax(setup):
+def test_merit_and_sim_forward_match_jax(setup, monkeypatch):
     """merit_alphas over default_alphas (alpha = 2^-j) with the problems'
     own mu, and one sim_forward_batched call over B wrench hypotheses."""
+    jax_in_pieces(monkeypatch, jint, jmerit)
     jm, tm, jcp, tcp, a = setup
     ja = {k: jnp.asarray(v) for k, v in a.items()}
     jal = jmerit.default_alphas(8, dtype=jnp.float64)

@@ -45,7 +45,7 @@ def test_mpc_goals_smoke_on_cpu():
 def test_entry_points_default_to_the_card():
     """BSQP and MPC_GATO build on the card unless told device="cpu"; without
     a card they raise instead of quietly taking the CPU route. float64 is
-    the CPU's; the observer estimator is not ported yet."""
+    the CPU's; the estimator is "sphere" or "observer" and nothing else."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points build there")
     with pytest.raises(RuntimeError, match="is_available"):
@@ -54,5 +54,6 @@ def test_entry_points_default_to_the_card():
         MPC_GATO(N=8, dt=0.01)
     with pytest.raises(RuntimeError, match="is_available"):
         BSQP(precision="double")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        MPC_GATO(N=8, dt=0.01, batch_size=4, estimator="observer", device="cpu")
+    assert MPC_GATO(N=8, dt=0.01, batch_size=4, estimator="observer", device="cpu")._observer
+    with pytest.raises(ValueError, match="observer"):
+        MPC_GATO(N=8, dt=0.01, batch_size=4, estimator="kalman", device="cpu")

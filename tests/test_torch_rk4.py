@@ -20,7 +20,7 @@ from gato_tpu.ops.pallas_sim import rk4_channels as jax_rk4_channels
 from gato_tpu_torch.api.common import rk4_step
 from gato_tpu_torch.ops.cuda_sim import require_cuda_robot, rk4_step_batched
 from gato_tpu_torch.robots.model import load_robot
-from torch_port_helpers import models, t64
+from torch_port_helpers import jax_in_pieces, models, t64
 
 B, DT, SUBSTEPS = 5, 0.01, 2
 
@@ -49,10 +49,12 @@ def test_rk4_matches_jax_rk4_channels(robot, with_fe):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-10, atol=1e-12)
 
 
-def test_rk4_step_matches_jax_rk4_step():
+def test_rk4_step_matches_jax_rk4_step(monkeypatch):
     """api.common.rk4_step (one state) against gato_tpu.api.common.rk4_step,
-    the spatial-algebra RK4, for each of the B states. iiwa14: indy7's
+    the spatial-algebra RK4, for each of the B states, its forward dynamics
+    compiled once (torch_port_helpers.jax_in_pieces). iiwa14: indy7's
     constant snap alone moves a step by ~3e-9 relative."""
+    jax_in_pieces(monkeypatch)
     jm, tm = models("iiwa14")
     x, u, _ = _inputs(jm.nq, seed=4)
     ref = jax.jit(jax.vmap(lambda a, b: jax_rk4_step(jm, a, b, DT,

@@ -32,7 +32,14 @@ P = DEFAULT_SOLVER_PARAMS
 
 
 def test_config_copies_match_jax_package():
+    from gato_tpu.api import config as jax_config
+    from gato_tpu_torch.api import config as port_config
+
     assert P == JAX_PARAMS
+    for name in ("STANDARD_BATCH_SIZES", "EXPERIMENT_BATCH_SIZES", "FIG8_DEFAULT_PARAMS"):
+        assert getattr(port_config, name) == getattr(jax_config, name), name
+    for k, v in jax_config.PENDULUM_DEFAULT_PARAMS.items():
+        np.testing.assert_array_equal(port_config.PENDULUM_DEFAULT_PARAMS[k], v)
     np.testing.assert_array_equal(figure8(DT), jax_figure8(DT))
 
 

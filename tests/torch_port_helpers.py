@@ -4,18 +4,42 @@ Every input is made once with numpy from a seed and handed to both
 packages: to gato_tpu as jnp arrays, to gato_tpu_torch through
 gato_tpu_torch.interop. Both sides run in float64 on the CPU
 (tests/conftest.py enables x64 for JAX).
+
+jax_in_pieces has the JAX package's on-device rollouts and rk4_step (and
+the modules a test names) call its solve_batched, fd and sim_step each
+compiled once on its own: inlined, every call site of the generated
+dynamics (fd: tens of thousands of operations) and the solve is traced
+and compiled again in every program, minutes of each test file on the
+CPU. The functions are the JAX package's own; only where they are
+compiled changes (the three rollouts' outputs agree with the inlined
+programs' to 1e-13 of the largest value in float64).
+
+Importing this module sets torch to one intra-op thread: pytest-xdist's
+workers share the machine's cores, and torch's thread pool over the plain
+versions' small batched tensors (a (64, 64, 12) reduction, a batch of
+12x12 matvecs) then ran far slower than one thread. pytest
+imports every test module when it collects, so the setting holds in every
+worker.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+import gato_tpu.api.common as jcommon
+import gato_tpu.api.rollout as jrollout
+from gato_tpu.dynamics import algorithms as JA
 from gato_tpu.ops.cost import CostParams as JCostParams
+from gato_tpu.ops.integrators import sim_step as jax_sim_step
 from gato_tpu.ops.kkt_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_solve import solve_channels
 from gato_tpu.robots.model import load_robot as jax_load_robot
+from gato_tpu.solver.bsqp import solve_batched_jit
 from gato_tpu_torch.interop import (MODEL_FIELDS, cost_from_numpy,
                                     model_from_numpy)
+
+torch.set_num_threads(1)
 
 COST_FIELDS = ("q_cost", "qd_cost", "u_cost", "N_cost", "q_lim_cost",
                "vel_lim_cost", "ctrl_lim_cost")
@@ -102,3 +126,57 @@ def run_solve_channels(jm, jcp, X, U, lam, x_s, ref, fe, rho, drho, mu, tol,
         res[name] = np.stack([o[k + i][:B, 0] for i in range(max_sqp_iters)])
         k += max_sqp_iters
     return res
+
+
+# ---- the JAX package's rollouts and rk4_step with their solve and
+# dynamics compiled once each (jax_in_pieces) ----
+
+_fd_jit = jax.jit(JA.fd)
+_fd_tangent_jit = jax.jit(lambda primals, tangents: jax.jvp(JA.fd, primals, tangents)[1])
+_sim_step_jit = jax.jit(jax_sim_step, static_argnames=("integrator_type",))
+
+
+def _on_host(fn, *args):
+    """fn(*args) (a jitted function) from inside a JAX trace, called on the
+    host through jax.pure_callback; under vmap once for each element."""
+    def host(*a):
+        return jax.tree_util.tree_map(np.asarray, fn(*a))
+    return jax.pure_callback(host, jax.eval_shape(fn, *args), *args,
+                             vmap_method="sequential")
+
+
+@jax.custom_jvp
+def _fd_on_host(model, q, qd, tau, f_ext):
+    return _on_host(_fd_jit, model, q, qd, tau, f_ext)
+
+
+@_fd_on_host.defjvp
+def _fd_on_host_jvp(primals, tangents):
+    return _fd_on_host(*primals), _on_host(_fd_tangent_jit, primals, tangents)
+
+
+def _fd(model, q, qd, tau, f_ext=None, transforms=None):
+    if transforms is not None:
+        return JA.fd(model, q, qd, tau, f_ext=f_ext, transforms=transforms)
+    return _fd_on_host(model, q, qd, tau, f_ext)
+
+
+def _sim_step(model, x, u, dt, f_ext=None, integrator_type=2):
+    return _on_host(lambda *a: _sim_step_jit(*a, integrator_type=integrator_type),
+                    model, x, u, dt, f_ext)
+
+
+def _solve_batched(model, settings, cp, hp, *arrays):
+    return _on_host(lambda *a: solve_batched_jit(a[0], settings, *a[1:]),
+                    model, cp, hp, *arrays)
+
+
+def jax_in_pieces(monkeypatch, *modules):
+    """For one test: the JAX package's rollouts (gato_tpu.api.rollout) and
+    rk4_step (gato_tpu.api.common), and the functions of `modules` that
+    call fd, call solve_batched, fd and sim_step compiled on their own
+    (module docstring)."""
+    monkeypatch.setattr(jrollout, "solve_batched", _solve_batched)
+    monkeypatch.setattr(jrollout, "sim_step", _sim_step)
+    for module in (jrollout, jcommon) + modules:
+        monkeypatch.setattr(module, "fd", _fd)
