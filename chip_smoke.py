@@ -40,7 +40,19 @@ cycle.
                 goals with the pendulum plant) and `[runner]`
                 (ExperimentRunner at B = 1, 32, 128, 512). rk4's wrench
                 branch is held against its plain version first (`[compare]
-                rk4 ... with a wrench`).
+                rk4 ... with a wrench`);
+  second plant  iiwa14 (nq = 7), the kernels bsqp_iter and rk4 built for it
+                (iiwa14_phases): `[iiwa14-kernels]` (bsqp_iter held to its
+                plain version as indy7's is at N=32 with B=128 and 512, at
+                the shared layout's last N and at N=128, B=512; rk4 in both
+                variants at B=1 and 512 with and without a wrench; each
+                shared-layout G timed), `[bench-iiwa14]` (the fig-8 cycle at
+                N=32 B=512, bench.py --plant iiwa14), `[rollout-iiwa14]`
+                (closed_loop_rollout toward a goal 8.8 cm away, held below
+                0.03 m) and `[rollout-goals-iiwa14]` (examples/pickplace.py's
+                device loop on the port, gato_tpu_torch.examples.
+                pickplace_device: iiwa14 + 15 kg pendulum, five goals,
+                12,502 cycles at B=128; outcomes printed, not held).
 
 The pcg kernel comes in variants (layout, G, C): one CTA per problem with
 its blocks in shared memory, a thread-block cluster of C CTAs per problem,
@@ -87,8 +99,9 @@ reads the N=32 tracking gate (its windows) from nearby warm-ups, and
 `--fusion-probe`
 compares rk4's variants built with and without multiply-add fusion.
 
-It builds the six CUDA kernels from gato_tpu_torch/csrc/ (one nvcc each, all
-at once), holds each against its plain PyTorch version on the steady-state
+It builds the six CUDA kernels from gato_tpu_torch/csrc/ for their plants
+(bsqp_iter and rk4 for indy7 and iiwa14, the rest for indy7: one nvcc each,
+all at once), holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
 and 128, B=512, the shared layout's last N and the global layout, where
 the limits give way to float32's own measured noise; pcg and kkt in every
@@ -105,6 +118,7 @@ kernel's bound from this run's inputs.
     python3 chip_smoke.py --save-capped n64_capped_schur.npz
     python3 chip_smoke.py --tracking-spread
     python3 chip_smoke.py --fusion-probe
+    python3 chip_smoke.py --iiwa14       # the second plant's phases only
 
 Needs one CUDA GPU; fails without one. Every failed check raises. The last
 two lines of standard output are the kernels' JSON record and
@@ -135,7 +149,7 @@ from gato_tpu_torch.api import rollout as rollout_mod
 from gato_tpu_torch.api.common import figure8, rk4_step, world_wrench_to_ee_frame
 from gato_tpu_torch.api.config import PENDULUM_DEFAULT_PARAMS
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
-from gato_tpu_torch.api.config import INDY7_START_CONFIGS
+from gato_tpu_torch.api.config import IIWA14_START_CONFIGS, INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.dynamics.codegen import header_path, header_stats
 from gato_tpu_torch.ops import cuda_iter, cuda_kkt, cuda_merit, cuda_pcg, cuda_sim
@@ -170,6 +184,10 @@ from gato_tpu_torch.solver.bsqp import select_route, sim_forward_batched, solve_
 from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 
 N, B, DT, K, WARMUP = 32, 512, 0.01, 50, 6
+# each plant's start and fig-8 (bench.py:85-97: iiwa14's elbow-bent start,
+# the fig-8 centred on its EE and sized to its workspace)
+START = dict(indy7=INDY7_START_CONFIGS["ready"], iiwa14=IIWA14_START_CONFIGS["bent"])
+FIG8_SHAPE = dict(indy7={}, iiwa14=dict(A_x=0.25, A_z=0.25, offset=(0.393, -0.393, 0.21)))
 N_LONG, B_LONG, K_LONG = 256, 64, 10
 # the iteration kernels' variants, (layout, G, phase A): the earlier
 # global-scratch layout and the shared layout at 1, 2, 4 threads per knot
@@ -254,17 +272,36 @@ RUNNER_BATCHES, RUNNER_TIME = (1, 32, 128, 512), 1.0
 KKT_RTOL, MERIT_ALPHA_RTOL, PCG_SAME_MIN, LAM_RTOL = 1e-4, 1e-5, 0.99, 1e-3
 # H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# Operations per knot outside the generated functions, counted from the
-# kernels' loops (csrc/sqp_iter.cuh, csrc/pcg.cu): a Cholesky inverse of an
-# n x n block is about 7 n^3 / 3; phi 936, theta 3,432, gamma 684 and
-# P_lower 2 x 2 x 12^3; dz recovery about 550; a block-tridiagonal matvec
-# three 12x12 blocks of multiply-adds; a PCG iteration two matvecs, two
-# dots and three vector updates.
-SCHUR_OPS = 7 * 6 ** 3 // 3 + 936 + 3432 + 684 + 7 * 12 ** 3 // 3 + 4 * 12 ** 3
-DZ_OPS, MATVEC_OPS = 550, 3 * 144 * 2
-PCG_SETUP_OPS = 2 * MATVEC_OPS + 12 + 24
-PCG_ITER_OPS = 2 * MATVEC_OPS + 2 * 24 + 3 * 24
-RK4_SUBSTEP_AXPY_OPS = 156  # csrc/rk4.cu: the stage states and the update
+
+
+def plant_ops(nq):
+    """Operations per knot outside the generated functions for a plant of
+    nq joints (nx = 2 nq = 2 nu), counted from the kernels' loops
+    (csrc/sqp_iter.cuh, csrc/pcg.cu, csrc/rk4.cu): a Cholesky inverse of an
+    n x n block is about 7 n^3 / 3; phi nx (2 nq^2 + nq), theta's upper
+    triangle nx (nx + 1) / 2 entries of 2 nx + 3 nu + 2, gamma nx (2 nq +
+    2 nx + 3 nu + 3), P_lower 2 x 2 x nx^3 (indy7: 936, 3,432, 684 and 2 x
+    2 x 12^3); dz recovery nx (2 nx + 2) + 2 nq^2 + nq + nu (2 nx + 3)
+    (about 550); a block-tridiagonal matvec three nx x nx blocks of
+    multiply-adds; a PCG iteration two matvecs, two dots and three vector
+    updates; an RK4 substep's stage states and update 13 nx; a merit
+    knot's candidate x, x_next, u 2 nx + nu multiply-adds."""
+    nx, nu = 2 * nq, nq
+    matvec = 3 * nx * nx * 2
+    return dict(
+        schur=(7 * nq ** 3 // 3 + nx * (2 * nq * nq + nq) + nx * (nx + 1) // 2
+               * (2 * nx + 3 * nu + 2) + nx * (2 * nq + 2 * nx + 3 * nu + 3)
+               + 7 * nx ** 3 // 3 + 4 * nx ** 3),
+        dz=nx * (2 * nx + 2) + 2 * nq * nq + nq + nu * (2 * nx + 3),
+        matvec=matvec, pcg_setup=2 * matvec + nx + 2 * nx,
+        pcg_iter=2 * matvec + 2 * 2 * nx + 3 * 2 * nx, rk4_axpy=13 * nx,
+        candidate=2 * (2 * nx + nu))
+
+
+_INDY7_OPS = plant_ops(6)
+SCHUR_OPS, DZ_OPS, MATVEC_OPS = _INDY7_OPS["schur"], _INDY7_OPS["dz"], _INDY7_OPS["matvec"]
+PCG_SETUP_OPS, PCG_ITER_OPS = _INDY7_OPS["pcg_setup"], _INDY7_OPS["pcg_iter"]
+RK4_SUBSTEP_AXPY_OPS = _INDY7_OPS["rk4_axpy"]
 # rk4's latency bound at B = 1 (the main path): each of the 4 x 2 stages
 # runs one forward dynamics call (fd's depth in the one variant; the deeper
 # of fd_crba and fd_bias, then fd_solve, in the crba variant: the depths
@@ -272,7 +309,7 @@ RK4_SUBSTEP_AXPY_OPS = 156  # csrc/rk4.cu: the stage states and the update
 # point q + c k (a product, then a sum), every operation one FP32 FMA
 # latency at the SM's maximum clock
 RK4_SUBSTEPS, RK4_AXPY_DEPTH, FMA_CYCLES = 2, 2, 4
-CANDIDATE_OPS = 60  # a merit knot's candidate x, x_next, u: 30 multiply-adds
+CANDIDATE_OPS = _INDY7_OPS["candidate"]
 WRAPPERS = dict(bsqp_iter=sqp_iter_cuda, rk4=rk4_step_batched,
                 iter=sqp_iter_core_cuda, kkt=setup_kkt_batched_cuda,
                 pcg=pcg_solve_batched_cuda, merit=merit_alphas_batched_cuda)
@@ -352,13 +389,13 @@ def bound(ops, n_bytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def generated_stats():
+def generated_stats(robot="indy7"):
     """{function: (operations, dependency depth)} of the generated
     functions, as dynamics/codegen.py writes them above each function of
-    csrc/generated/indy7.cuh: every binary + - * / and every sqrt, sin,
+    csrc/generated/<robot>.cuh: every binary + - * / and every sqrt, sin,
     cos, log, abs and max call counts as one operation; a negation, which
     compiles into its user's operand, counts as none and adds no link."""
-    with open(header_path("indy7")) as f:
+    with open(header_path(robot)) as f:
         return header_stats(f.read())
 
 
@@ -379,22 +416,23 @@ def rk4_latency_bound(stats, mhz, variant):
     return 4 * RK4_SUBSTEPS * depth * FMA_CYCLES / (mhz * 1e3), depth
 
 
-def taken_variant(n):
-    """(layout, G, phase A) of the iteration kernels at horizon n."""
-    layout, g = iteration_variant(n)
-    return layout, g, phase_a_default(layout, g)
+def taken_variant(n, nx=12):
+    """(layout, G, phase A) of the iteration kernels at horizon n for a
+    plant of state size nx."""
+    layout, g = iteration_variant(n, nx)
+    return layout, g, phase_a_default(layout, g, nx)
 
 
-def variant_name(n):
-    layout, g, phase_a = taken_variant(n)
+def variant_name(n, nx=12):
+    layout, g, phase_a = taken_variant(n, nx)
     return f"{layout} layout, G={g}, phase A {phase_a}"
 
 
-def ptxas_lines(name, pattern, key_of):
+def ptxas_lines(name, pattern, key_of, robot="indy7"):
     """{key_of(match): ptxas' register and spill lines} of the kernels of
-    csrc/<name>.cu whose mangled name matches `pattern`."""
+    csrc/<name>.cu built for `robot` whose mangled name matches `pattern`."""
     out, key = {}, None
-    for line in _build.ptxas_report(name).splitlines():
+    for line in _build.ptxas_report(name, robot).splitlines():
         m = re.search(pattern, line)
         if m:
             key = key_of(m)
@@ -406,13 +444,13 @@ def ptxas_lines(name, pattern, key_of):
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def ptxas_variants(name):
+def ptxas_variants(name, robot="indy7"):
     """{(layout, G, phase A): ptxas' register and spill lines} of the
-    iteration kernel variants compiled in csrc/<name>.cu."""
+    iteration kernel variants compiled in csrc/<name>.cu for `robot`."""
     return ptxas_lines(
         name, r"iteration_kernelILb[01]ELNS_6BlocksE(\d)ELi(\d)ELb([01])E",
         lambda m: (("global", "shared")[int(m.group(1))], int(m.group(2)),
-                   ("one", "staged")[int(m.group(3))]))
+                   ("one", "staged")[int(m.group(3))]), robot)
 
 
 def ptxas_kkt():
@@ -518,19 +556,20 @@ def normwise(a, b):
 
 
 class Fig8:
-    """bench.py's closed loop on the port: one route (solve, plant) each."""
+    """bench.py's closed loop on the port: one route (solve, plant) each,
+    for indy7 or iiwa14 (bench.py --plant: START and FIG8_SHAPE)."""
 
-    def __init__(self, dev, n=N, b=B):
+    def __init__(self, dev, n=N, b=B, robot="indy7"):
         self.dev, self.N, self.B = dev, n, b
-        self.model = load_robot("indy7", torch.float32, dev)
+        self.model = load_robot(robot, torch.float32, dev)
         self.cp = CostParams(**{k: P[k] for k in (
             "q_cost", "qd_cost", "u_cost", "N_cost", "q_lim_cost",
             "vel_lim_cost", "ctrl_lim_cost")})
         self.settings = self.settings_with("auto", "auto")
         self.hp = HyperParams.create(b, rho=P["rho"], mu=P["mu"],
                                      pcg_tol=P["pcg_tol"], device=dev)
-        self.traj = torch.tensor(figure8(DT).reshape(-1, 6), dtype=torch.float32,
-                                 device=dev)
+        self.traj = torch.tensor(figure8(DT, **FIG8_SHAPE[robot]).reshape(-1, 6),
+                                 dtype=torch.float32, device=dev)
         # per-lane wrench hypotheses; lane 0 is the zero hypothesis and drives
         # the plant (bench.py:103-113)
         rng = np.random.default_rng(0)
@@ -582,18 +621,19 @@ class Fig8:
         return (Xo, Uo, lamo, x_s), pcg, step
 
     def steady_state(self, warmup=WARMUP):
-        """bench.py:54-130: `warmup` (6) cycles from the 'ready' start with a
+        """bench.py:54-130: `warmup` (6) cycles from the plant's START with a
         10-substep RK4 plant, on the default route."""
-        x0 = np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)])
+        nq, nx = self.model.nq, self.model.nx
+        x0 = np.concatenate([START[self.model.name], np.zeros(nq)])
         x0 = torch.tensor(x0, dtype=torch.float32, device=self.dev)
-        X = x0.expand(self.B, self.N, 12).contiguous()
-        U = torch.zeros(self.B, self.N - 1, 6, device=self.dev)
-        lam = torch.zeros(self.B, self.N, 12, device=self.dev)
-        x_s = x0.expand(self.B, 12).contiguous()
+        X = x0.expand(self.B, self.N, nx).contiguous()
+        U = torch.zeros(self.B, self.N - 1, nq, device=self.dev)
+        lam = torch.zeros(self.B, self.N, nx, device=self.dev)
+        x_s = x0.expand(self.B, nx).contiguous()
         for step in range(warmup):
             X, U, lam, _, _ = self.solve_kernel(X, U, lam, x_s, self.ref(step))
             x_s = self.plant_kernel(x_s[0], U[0, 0], 10)[None].expand(
-                self.B, 12).contiguous()
+                self.B, nx).contiguous()
             X[:, 0] = x_s
         return (X, U, lam, x_s), warmup  # bench.py: cycles start at step + 1
 
@@ -614,9 +654,10 @@ class Fig8:
         torch.cuda.synchronize()
         ms_cycle = [a.elapsed_time(b) for a, b in ev]
         cd = _get_cd(self.model.key)
-        q = torch.stack(xs_hist)[:, :6]
-        p_ee = cd.fk_ee([ms.cos(q[:, i]) for i in range(6)],
-                        [ms.sin(q[:, i]) for i in range(6)])[0]
+        nq = self.model.nq
+        q = torch.stack(xs_hist)[:, :nq]
+        p_ee = cd.fk_ee([ms.cos(q[:, i]) for i in range(nq)],
+                        [ms.sin(q[:, i]) for i in range(nq)])[0]
         p_ee = torch.stack(p_ee, 1)
         goal = torch.stack([self.ref(i0 + c)[0, 1, :3] for c in range(k)])
         err = (p_ee - goal).norm(dim=1)
@@ -643,7 +684,7 @@ def iteration_arms(f, state, i):
     s0 = IterState(X, U, lam, f.hp.rho, f.hp.drho, zero, zero, zero, zero)
     kernel = sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings, seeded=False)
     plain = sqp_iter_reference(f.model, f.cp, prob, s0, f.settings, seeded=False)
-    m64 = load_robot("indy7", torch.float64, f.dev)
+    m64 = load_robot(f.model.name, torch.float64, f.dev)
     p64 = Problem(*(t.double() for t in prob[:5]), DT)
     f64 = sqp_iter_reference(m64, f.cp, p64, IterState(*(t.double() for t in s0)),
                              f.settings, seeded=False)
@@ -717,8 +758,8 @@ def compare_iteration(f, state, i, noise_floor=False):
                            dict(X_rel=(ro.X[quiet], o64.X[quiet]),
                                 U_rel=(ro.U[quiet], o64.U[quiet])))
     res["limits"] = lim
-    log(f"[compare] bsqp_iter kernel ({variant_name(f.N)}) vs sqp_iter_reference "
-        f"(float32, N={f.N} B={f.B}, identical steady-state input):")
+    log(f"[compare] bsqp_iter kernel ({f.model.name}, {variant_name(f.N, f.model.nx)}) vs "
+        f"sqp_iter_reference (float32, N={f.N} B={f.B}, identical steady-state input):")
     log(f"  identical ls_step on {res['step_same_frac']:.4f} of lanes "
         f"(tolerance >= {lim['steps']:.4f}{LIMIT_NOTE[noise_floor]})")
     log(f"  PCG counts within {PCG_SLACK} on {res['pcg_within_frac']:.4f} of "
@@ -761,45 +802,53 @@ def compare_rk4(f, state):
         k = rk4_step_batched(f.model, x, u, DT, None, RK4_SUBSTEPS, variant=v)
         torch.cuda.synchronize()
         errs[v] = (k - p).abs().max().item()
-        log(f"[compare] rk4 kernel ({v}{', the default' if v == cuda_sim.DEFAULT else ''}) vs "
+        log(f"[compare] rk4 kernel ({f.model.name}, {v}"
+            f"{', the default' if v == cuda_sim.DEFAULT else ''}) vs "
             f"rk4_channels (B=1, {RK4_SUBSTEPS} substeps): max abs err {errs[v]:.3e}, "
             f"tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
         if not (torch.isfinite(k).all() and errs[v] <= tol):
             raise RuntimeError(f"rk4 kernel ({v}) disagrees with its plain version")
     # the wrench branch (f_ext, the EE-frame wrench the estimator rollout
     # steps its plant under): B = 1 with the rollout's world wrench in the EE
-    # frame at this state, B = 512 with per-lane wrenches as f.f_ext's
+    # frame at this state, B = 512 with per-lane wrenches as f.f_ext's; and
+    # B = 512 without one
     g = torch.Generator().manual_seed(5)
-    fe1 = world_wrench_to_ee_frame(f.model, x[0, :6], torch.tensor(
+    nq, nx = f.model.nq, f.model.nx
+    fe1 = world_wrench_to_ee_frame(f.model, x[0, :nq], torch.tensor(
         EST_WRENCH, device=f.dev))[None].contiguous()
-    xw = (torch.rand(B, 12, generator=g).to(f.dev) * 2 - 1)
-    uw = (torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5)
+    xw = (torch.rand(B, nx, generator=g).to(f.dev) * 2 - 1)
+    uw = (torch.rand(B, nq, generator=g).to(f.dev) * 10 - 5)
     few = (torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5)
-    for b, (xb, ub, fb) in ((1, (x, u, fe1)), (B, (xw, uw, few))):
+    wrenches = {1: f"the estimator rollout world wrench {list(EST_WRENCH)} N at the state",
+                B: "uniform in +-5 per lane"}
+    for b, (xb, ub, fb) in ((1, (x, u, fe1)), (B, (xw, uw, few)), (B, (xw, uw, None))):
         p = rk4_plain(f.model, xb, ub, DT, fb, RK4_SUBSTEPS)
         tol = RK4_RTOL * p.abs().max().item()
         for v in (cuda_sim.DEFAULT,) + tuple(v for v in cuda_sim.VARIANTS if v != cuda_sim.DEFAULT):
             k = rk4_step_batched(f.model, xb, ub, DT, fb, RK4_SUBSTEPS, variant=v)
             torch.cuda.synchronize()
             err = (k - p).abs().max().item()
-            log(f"[compare] rk4 kernel ({v}) vs rk4_channels with a wrench (B={b}, "
-                f"{RK4_SUBSTEPS} substeps, EE-frame f_ext: "
-                f"{'the estimator rollout world wrench ' + str(list(EST_WRENCH)) + ' N at the state' if b == 1 else 'uniform in +-5 per lane'}): "
+            log(f"[compare] rk4 kernel ({f.model.name}, {v}) vs rk4_channels "
+                f"{'with a wrench' if fb is not None else 'without a wrench'} (B={b}, "
+                f"{RK4_SUBSTEPS} substeps"
+                f"{', EE-frame f_ext: ' + wrenches[b] if fb is not None else ''}): "
                 f"max abs err {err:.3e}, tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
             if not (torch.isfinite(k).all() and err <= tol):
-                raise RuntimeError(f"rk4 kernel ({v}) with a wrench disagrees with its plain "
-                                   f"version at B={b}")
+                raise RuntimeError(f"rk4 kernel ({f.model.name}, {v}) disagrees with its plain "
+                                   f"version at B={b} {'with' if fb is not None else 'without'} "
+                                   f"a wrench")
     # crba runs fd's own expressions, split over two warps: against the
     # one-thread kernel it differs only where ptxas fuses a multiply-add in
     # one kernel and not in the other, which depends on the code around it
     # (PERF.md section 6; reported)
     g = torch.Generator().manual_seed(3)
-    for b, (xb, ub) in ((1, (x, u)), (B, (torch.rand(B, 12, generator=g).to(f.dev) * 2 - 1,
-                                          torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5))):
+    for b, (xb, ub) in ((1, (x, u)), (B, (torch.rand(B, nx, generator=g).to(f.dev) * 2 - 1,
+                                          torch.rand(B, nq, generator=g).to(f.dev) * 10 - 5))):
         outs = [rk4_step_batched(f.model, xb, ub, DT, None, RK4_SUBSTEPS, variant=v)
                 for v in ("crba", "one")]
         torch.cuda.synchronize()
-        log(f"[compare] rk4 crba against one (B={b}{', the main path input' if b == 1 else ''}): "
+        log(f"[compare] rk4 crba against one ({f.model.name}, B={b}"
+            f"{', the main path input' if b == 1 else ''}): "
             f"equal bit for bit {torch.equal(*outs)}, max abs difference "
             f"{(outs[0] - outs[1]).abs().max().item():.3e} (reported)")
     return x, u, errs[cuda_sim.DEFAULT]
@@ -855,7 +904,7 @@ def compare_core(f, state, i, noise_floor=False):
     mpcg = P["max_pcg_iters"]
     ko = sqp_iter_core_cuda(f.model, f.cp, *args, skip, DT, mpcg)
     ro = sqp_iter_core_reference(f.model, f.cp, *args, skip, DT, mpcg)
-    m64 = load_robot("indy7", torch.float64, f.dev)
+    m64 = load_robot(f.model.name, torch.float64, f.dev)
     o64 = sqp_iter_core_reference(m64, f.cp, *(t.double() for t in args), skip,
                                   DT, mpcg)
     torch.cuda.synchronize()
@@ -1340,7 +1389,7 @@ def f64_assembled_system(f, X, U, x_s, ref, lam0):
     """The Schur system assembled in float64 (setup_kkt_batched and
     build_schur on the float64 model) from a float32 state, rounded to
     float32 once: a system that no float32 assembly's rounding shaped."""
-    m64 = load_robot("indy7", torch.float64, f.dev)
+    m64 = load_robot(f.model.name, torch.float64, f.dev)
     kkt = setup_kkt_batched(m64, f.cp, X.double(), U.double(), x_s.double(),
                             ref.double(), f.f_ext.double(), DT)
     sch = build_schur(kkt, f.hp.rho.double(), 6)
@@ -1482,12 +1531,11 @@ def fusion_probe(card, n=65536):
     the share of plants whose output differs in any bit, crba against one
     in the same build, and each build's one against the kernels' own.
     Reported, nothing held."""
-    src = os.path.join(_build.CSRC_DIR, "rk4.cu")
     procs = {}
     for i, (tag, extra) in enumerate(FUSION_FLAGS.items()):
         out = os.path.join(_build.BUILD_DIR, f"librk4-fusion{i}-{os.getpid()}.so")
-        procs[tag] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", out,
-                                        src], stdout=subprocess.DEVNULL,
+        procs[tag] = (subprocess.Popen(_build.nvcc_command("rk4", "indy7", out, extra),
+                                       stdout=subprocess.DEVNULL,
                                        stderr=subprocess.STDOUT), out)
     libs = {}
     for tag, (proc, out) in procs.items():
@@ -1590,7 +1638,7 @@ FORCED = {
     "pcg in the global variant": lambda: forced(cuda_pcg, "pcg_variant",
                                                 lambda n: ("global", 1, 1)),
     "the one-thread phase A": lambda: forced(cuda_iter, "phase_a_default",
-                                             lambda layout, g: "one"),
+                                             lambda layout, g, nx=12: "one"),
     "the one-thread kkt": lambda: forced(cuda_kkt, "DEFAULT", ("one", 1)),
     "the two-warp rk4 (crba)": lambda: forced(cuda_sim, "DEFAULT", "crba"),
     "the one-thread merit": lambda: forced(cuda_merit, "DEFAULT", "one"),
@@ -1754,7 +1802,7 @@ def facade_phase(f, state, i0, card):
         f"so the read and the glue: {[round(b - d, 4) for b, d in zip(between, dev_ms)]} ms; "
         f"whole solve {s5['sqp_time_us']} us wall, {fac5.device_solve_time_us:.1f} us "
         f"between its CUDA events")
-    m64 = load_robot("indy7", torch.float64, f.dev)
+    m64 = load_robot(f.model.name, torch.float64, f.dev)
     arms = {}
     for tag, model, dt in (("plain32", f.model, torch.float32), ("float64", m64, torch.float64)):
         Xa, Ua = (t.to(dt) for t in fac._unflatten(XU_in))
@@ -2239,6 +2287,243 @@ def rollout_phases(f, dev, card, default_cycle_ms):
     runner_phase(card)
 
 
+IIWA = "iiwa14"
+# [iiwa14-kernels]: bsqp_iter for iiwa14 held as indy7's is (compare_iteration)
+# at N=32 with B=128 and 512, at the shared layout's last N and at N=128 in
+# the global layout (B=512), and timed in every shared-layout G it is
+# compiled for and the global layout at N=32 B=512; rk4 for iiwa14 held in
+# both variants (compare_rk4) and timed at B=1
+IIWA_CHECKS = ((N, 128), (N, B), (cuda_iter.SHARED_MAX_N, B), (128, B))
+IIWA_VARIANTS = (("shared", 1), ("shared", 2), ("shared", 7), ("global", 1))
+# [rollout-iiwa14]: tests/test_rollout.py::test_rollout_reaches_nearby_goal
+# carried to iiwa14 at N=32 B=512: the elbow-bent start
+# (examples/mixed_fleet.py:130), a goal REACH_OFFSET m from its EE, that
+# test's costs, hyperparameters and settings (2 SQP iterations, PCG <= 40,
+# dt 0.01, control_dt 0.004, 2 substeps, REACH_STEPS cycles, no wrench);
+# held: the last EE distance below REACH_MAX m, the test's limit (the JAX
+# package's own rollout of this setup on the CPU ends at 0.0106 m)
+REACH_OFFSET, REACH_STEPS, REACH_MAX, REACH_CONTROL_DT = (0.06, -0.04, 0.05), 60, 0.03, 0.004
+REACH_COST = dict(q_cost=2.0, qd_cost=1e-2, u_cost=2e-6, N_cost=50.0, q_lim_cost=0.01)
+# [rollout-goals-iiwa14]: examples/pickplace.py::main_device's loop on the
+# port (gato_tpu_torch.examples.pickplace_device) at its largest batch
+PICKPLACE_B = 128
+
+
+def iiwa14_variants(card, f, prob, s0):
+    """[variant] lines of bsqp_iter for iiwa14 (shared memory, blocks per
+    SM, ptxas' registers and spills) at N=32 and the shared layout's last
+    N, the library's shared-memory count held to ops/cuda_iter.py's at
+    every N, and each variant's device ms at f's input (graph_ms, two
+    rounds in opposite orders). Returns {variant: ms}."""
+    nx = f.model.nx
+    bad = [(n, v) for n in range(2, 129) for v in IIWA_VARIANTS
+           if v[1] * 32 * ((n + 31) // 32) <= cuda_iter.MAX_THREADS
+           and variant_resources("bsqp_iter", n, *v, robot=IIWA)[0] != smem_bytes(n, *v, nx)]
+    if bad:
+        raise RuntimeError(f"bsqp_iter ({IIWA}): smem_bytes differs from the library at {bad[:4]}")
+    px = ptxas_variants("bsqp_iter", IIWA)
+    for n in (N, cuda_iter.SHARED_MAX_N):
+        for v in IIWA_VARIANTS:
+            if v[1] * 32 * ((n + 31) // 32) > cuda_iter.MAX_THREADS:
+                continue
+            nb, per_sm = variant_resources("bsqp_iter", n, *v, robot=IIWA)
+            taken = " (the variant N takes)" if iteration_variant(n, nx) == v else ""
+            log(f"[variant] bsqp_iter {IIWA} N={n} {v[0]} layout G={v[1]} phase A one{taken}: "
+                f"{nb} bytes of shared memory, {per_sm} blocks per SM, "
+                f"{v[1] * 32 * ((n + 31) // 32)} threads; ptxas: {px[v + ('one',)]}")
+    rounds = {v: [] for v in IIWA_VARIANTS}
+    for order in (IIWA_VARIANTS, IIWA_VARIANTS[::-1]):
+        for v in order:
+            rounds[v].append(graph_ms(lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings,
+                                                            seeded=False, variant=v), 20))
+    ms = {v: statistics.mean(r) for v, r in rounds.items()}
+    log(f"[layout] {card}: bsqp_iter {IIWA} N={f.N} B={f.B}, ms per launch on the device "
+        f"(graph_ms, two rounds): " + ", ".join(
+            f"{v[0]} G={v[1]} {ms[v]:.4f} {[round(t, 4) for t in rounds[v]]}"
+            for v in IIWA_VARIANTS)
+        + f"; the variant N takes: {iteration_variant(f.N, nx)}")
+    return ms
+
+
+def iiwa14_kernels_phase(dev, card):
+    """[iiwa14-kernels]: bsqp_iter and rk4 built for iiwa14, each held to
+    its plain version on identical float32 inputs from iiwa14's fig-8
+    steady state (bench.py --plant iiwa14: DEFAULT_SOLVER_PARAMS, the
+    elbow-bent start, the fig-8 centred on its EE, wrench hypotheses +-5
+    with lane 0 zero), with indy7's holds: compare_iteration at
+    IIWA_CHECKS (the long horizons with noise_limits), compare_rk4 in both
+    variants at B=1 and B=512 with and without a wrench. Then the
+    variants' lines and times, and each kernel's device, wrapper-call and
+    plain ms at N=32 B=512 (rk4 at B=1). Returns the numbers of the
+    kernels line."""
+    res = {}
+    for n, b in IIWA_CHECKS:
+        fc = Fig8(dev, n, b, IIWA)
+        state_c, i0_c = fc.steady_state()
+        res[n, b] = (fc, state_c, i0_c) + tuple(
+            compare_iteration(fc, state_c, i0_c - 1, noise_floor=n > N))
+        if (n, b) != (N, B):
+            del fc, state_c
+            res[n, b] = res[n, b][-1]
+    f, state, i0, prob, s0, iter_res = res[N, B]
+    xr, ur, rk4_err = compare_rk4(f, state)
+    lay = iiwa14_variants(card, f, prob, s0)
+    px = ptxas_lines("rk4", r"rk4_(split|one)_kernel",
+                     lambda m: dict(split="crba", one="one")[m.group(1)], IIWA)
+    for v in cuda_sim.VARIANTS:
+        log(f"[variant] rk4 {IIWA} {v}{' (the default)' if v == cuda_sim.DEFAULT else ''}: "
+            f"ptxas: {px[v]}")
+    rk4_ms = time_in_rounds(
+        cuda_sim.VARIANTS, lambda v: rk4_step_batched(f.model, xr, ur, DT, None, RK4_SUBSTEPS,
+                                                      variant=v),
+        200, card, f"rk4 {IIWA}", cuda_sim.DEFAULT)
+    t = dict(
+        bsqp_iter=(lambda: sqp_iter_cuda(f.model, f.cp, prob, s0, f.settings, seeded=False),
+                   lambda: sqp_iter_reference(f.model, f.cp, prob, s0, f.settings,
+                                              seeded=False), 20),
+        rk4=(lambda: rk4_step_batched(f.model, xr, ur, DT, None, RK4_SUBSTEPS),
+             lambda: rk4_plain(f.model, xr, ur, DT, None, RK4_SUBSTEPS), 200))
+    times = {name: (graph_ms(kf, reps), event_ms(kf, reps), event_ms(pf, 3))
+             for name, (kf, pf, reps) in t.items()}
+    log(f"[timing] {card}: {IIWA}, ms per call, kernel on the device (graph_ms) / per wrapper "
+        f"call (CUDA events) / plain version (N={N}, B={B}; rk4 at B=1): "
+        + ", ".join(f"{n} {d:.4f} / {w:.4f} / {p:.3f}" for n, (d, w, p) in times.items()))
+    # bounds from this run's inputs, as the main path's
+    stats = generated_stats(IIWA)
+    ops = plant_ops(f.model.nq)
+    X, U, lam, x_s = state
+    vec = torch.empty(B, device=dev)
+    A1 = f.settings.num_alphas + 1
+    bounds = dict(
+        bsqp_iter=bound(B * N * (stats["knot_kkt"][0] + ops["schur"] + ops["dz"]
+                                 + ops["pcg_setup"])
+                        + N * ops["pcg_iter"] * iter_res["kernel_pcg_sum"]
+                        + B * A1 * N * (stats["knot_merit"][0] + ops["candidate"]),
+                        nbytes(X, U, lam, x_s, prob.ref[..., :3], f.f_ext) + 17 * nbytes(vec)
+                        + nbytes(X, U, lam)),
+        rk4=bound(RK4_SUBSTEPS * (4 * stats["fd"][0] + ops["rk4_axpy"]),
+                  nbytes(xr, ur) + nbytes(xr)))
+    mhz = sm_max_clock_mhz()
+    lat = {v: rk4_latency_bound(stats, mhz, v) for v in cuda_sim.VARIANTS}
+    if lat[cuda_sim.DEFAULT][0] > bounds["rk4"][0]:
+        bounds["rk4"] = (lat[cuda_sim.DEFAULT][0], "latency")
+    for n in ("bsqp_iter", "rk4"):
+        log(f"[bound] {n} {IIWA}: {times[n][0]:.4f} ms on the card, bound {bounds[n][0]:.5f} ms "
+            f"by {bounds[n][1]} ({bounds[n][0] / times[n][0]:.4f} of the bound reached)"
+            + (f"; latency per variant {', '.join(f'{v} {lat[v][0]:.5f} ms' for v in lat)}, "
+               f"on the card {', '.join(f'{v} {rk4_ms[v][0]:.5f}' for v in rk4_ms)}"
+               if n == "rk4" else ""))
+    return f, state, i0, dict(
+        errs=dict(bsqp_iter=iter_res["X_max_abs_err"], rk4=rk4_err), times=times,
+        bounds=bounds, layouts=lay)
+
+
+def rollout_iiwa14_phase(dev, card):
+    """[rollout-iiwa14]: closed_loop_rollout with iiwa14 as solver and
+    plant at N=32 B=512 toward a constant goal (REACH_*). Held: graph
+    against eager over the first ROLLOUT_SAME cycles, the captured cycle's
+    max_sqp_iters bsqp_iter and one rk4 launch, finite states, the last EE
+    distance below REACH_MAX m."""
+    model = load_robot(IIWA, torch.float32, dev)
+    settings = BSQPSettings(N=N, max_sqp_iters=2, max_pcg_iters=40)
+    cp = CostParams(**REACH_COST)
+    hp = HyperParams.create(B, rho=0.01, mu=10.0, pcg_tol=1e-4, device=dev)
+    q0 = torch.tensor(START[IIWA], dtype=torch.float32, device=dev)
+    x0 = torch.cat([q0, torch.zeros_like(q0)])
+    goal = fk(model, q0)[1][-1] + torch.tensor(REACH_OFFSET, device=dev)
+    refs = torch.cat([goal, torch.zeros(3, device=dev)]).expand(REACH_STEPS, N, 6).contiguous()
+    f_ext = torch.zeros(B, 6, device=dev)
+
+    def call(graph):
+        n = REACH_STEPS if graph else ROLLOUT_SAME
+        return rollout_mod.closed_loop_rollout(model, model, settings, cp, hp, x0, refs[:n],
+                                               f_ext, DT, REACH_CONTROL_DT, sim_substeps=2,
+                                               graph=graph)
+
+    (xs, ees, us), replay_ms, eager_ms, got = graph_against_eager(
+        "rollout-iiwa14", call, dict(bsqp_iter=2, rk4=1), card)
+    d = (ees - goal).norm(dim=1)
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(us).all())
+    log(f"[rollout-iiwa14] {card}: closed_loop_rollout({IIWA}, N={N}, B={B}) toward a goal "
+        f"{list(REACH_OFFSET)} m from the start EE over {REACH_STEPS} cycles (control_dt "
+        f"{REACH_CONTROL_DT} s): EE distance at cycles 20, 40 and the last "
+        f"{d[19].item():.5f}, {d[39].item():.5f}, {d[-1].item():.5f} m (limit {REACH_MAX} m on "
+        f"the last); states finite {finite}; {replay_ms:.4f} ms a cycle from the graph, "
+        f"{eager_ms:.3f} ms eager")
+    if not (finite and d[-1].item() < REACH_MAX):
+        raise RuntimeError("[rollout-iiwa14] failed")
+    return dict(launches=got, ms=replay_ms)
+
+
+def goals_iiwa14_phase(dev, card):
+    """[rollout-goals-iiwa14]: examples/pickplace.py's device loop on the
+    port (gato_tpu_torch.examples.pickplace_device: iiwa14 solver, iiwa14 +
+    15 kg pendulum plant, the five goals, PICKPLACE_SOLVER_PARAMS, N=32,
+    dt 0.03125, control_dt 2 ms, RK4-substepped scoring) at B=PICKPLACE_B
+    over its 12,502 cycles. Held: graph against eager (five bsqp_iter
+    launches a captured cycle and no rk4: the pendulum plant steps on the
+    rigid-body algorithms; five more for the solve before the loop), finite
+    states. Printed, not held: each goal's outcome and reach time."""
+    from gato_tpu_torch.examples import pickplace_device as pp
+
+    model, sim, settings, cp, hp, x_sim0, goals = pp.pickplace_setup(PICKPLACE_B, N, dev)
+    n_steps = pp.n_cycles(goals.shape[0], pp.PICKPLACE_MPC_DEFAULTS["goal_timeout"], 0.002)
+    rows = {}
+
+    def call(graph):
+        k = n_steps if graph else ROLLOUT_SAME
+        row, out = pp.run(PICKPLACE_B, N=N, n_steps=k, device=dev, graph=graph)
+        rows[graph] = row
+        return out
+
+    iters = settings.max_sqp_iters
+    out, replay_ms, eager_ms, got = graph_against_eager(
+        "rollout-goals-iiwa14", call, dict(bsqp_iter=iters, rk4=0), card, before_loop=iters)
+    finite = bool(torch.isfinite(out[0]).all())
+    row = rows[True]
+    log(f"[rollout-goals-iiwa14] {card}: {IIWA} solver, {sim.name} plant (15 kg, 0.3 m), "
+        f"N={N} B={PICKPLACE_B}, {goals.shape[0]} goals, {n_steps} cycles at control_dt "
+        f"0.002 s: outcomes {row['goal_outcomes']}, reached at {row['goal_reached_times']} s, "
+        f"last distance {row['final_dist_m']} m, final force estimate "
+        f"{row['force_estimate_end_N']} N; states finite {finite}; {replay_ms:.4f} ms a cycle "
+        f"from the graph, {eager_ms:.3f} ms eager")
+    if not finite:
+        raise RuntimeError("[rollout-goals-iiwa14] failed")
+    return dict(launches=got, ms=replay_ms)
+
+
+def bench_iiwa14_phase(f, state, i0, card, kernel_times):
+    """[bench-iiwa14]: the steady-state fig-8 cycle at iiwa14 N=32 B=512
+    (solve, rk4 plant step of lane 0, roll the window: bench.py --plant
+    iiwa14, BENCH_GRID_IIWA14.json's cell) over K cycles, launches counted
+    from zero. Held: one bsqp_iter and one rk4 launch a cycle, a finite
+    trajectory. Printed: cycle ms (median), solves/s, lane 0's tracking
+    error and the kernels' device ms (graph_ms, [iiwa14-kernels])."""
+    reset_launches()
+    state_k, ms_k, err_k, pcg_k, step_k = f.run(state, i0, f.solve_kernel, f.plant_kernel)
+    got = launches()
+    med = statistics.median(ms_k)
+    log(f"[bench-iiwa14] {card}: {IIWA} N={f.N} B={f.B} fig-8 cycle median {med:.4f} ms "
+        f"({f.B / (med / 1e3):.1f} solves/s) over {K} cycles (CUDA events); bsqp_iter "
+        f"{kernel_times['bsqp_iter'][0]:.4f} ms and rk4 {kernel_times['rk4'][0]:.4f} ms on the "
+        f"device (graph_ms); launches {got}; lane 0 mean EE error {err_k.mean().item():.4f} m; "
+        f"work {json.dumps(work_trace(pcg_k, step_k))}")
+    want = dict(bsqp_iter=K * P["max_sqp_iters"], rk4=K, iter=0, kkt=0, pcg=0, merit=0)
+    if got != want or not torch.isfinite(state_k[0]).all():
+        raise RuntimeError(f"[bench-iiwa14] launches {got} (expected {want}) or a non-finite "
+                           "trajectory")
+    return dict(launches=got, ms=med)
+
+
+def iiwa14_phases(dev, card):
+    """The second plant: its kernels, its rollouts, its fig-8 cycle."""
+    f, state, i0, kern = iiwa14_kernels_phase(dev, card)
+    bench = bench_iiwa14_phase(f, state, i0, card, kern["times"])
+    rollout_iiwa14_phase(dev, card)
+    goals_iiwa14_phase(dev, card)
+    return kern, bench
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--save-capped", metavar="PATH",
@@ -2255,6 +2540,9 @@ def main(argv=None):
                         help="only build the kernels and run the sphere search at N=32 "
                              "B=512 on the kernel and the plain route (estimator_witness), "
                              "then stop")
+    parser.add_argument("--iiwa14", action="store_true",
+                        help="only build the kernels and run the second plant's phases "
+                             "(iiwa14_phases), then stop")
     parser.add_argument("--tracking-spread", action="store_true",
                         help="only build the kernels and print the N=32 tracking gate "
                              "and step check on nearby inputs (tracking_spread), then stop")
@@ -2283,6 +2571,9 @@ def main(argv=None):
     if args.estimator_witness:
         estimator_witness(dev, card)
         return 0
+    if args.iiwa14:
+        iiwa14_phases(dev, card)
+        return 0
     if args.rollouts:
         f = Fig8(dev)
         state, i0 = f.steady_state()
@@ -2290,8 +2581,8 @@ def main(argv=None):
         rollout_phases(f, dev, card, statistics.median(
             f.run(state, i0, f.solve_kernel, f.plant_kernel)[1]))
         return 0
-    for name in _build.KERNELS:
-        log(f"[build] ptxas {name}:\n{_build.ptxas_report(name).rstrip()}")
+    for name, robot in _build.LIBRARIES:
+        log(f"[build] ptxas {name} ({robot}):\n{_build.ptxas_report(name, robot).rstrip()}")
     stats = generated_stats()
     ops = {name: n for name, (n, _) in stats.items()}
     log(f"[bound] (operations, dependency depth) of the generated functions: {stats}")
@@ -2458,6 +2749,8 @@ def main(argv=None):
     goals_phase(card)
     # ---- the on-device rollouts, each cycle one CUDA graph ----
     rollout_phases(f, dev, card, med_k)
+    # ---- the second plant: iiwa14's kernels, rollouts and fig-8 cycle ----
+    kern_i, bench_i = iiwa14_phases(dev, card)
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":
@@ -2617,8 +2910,17 @@ def main(argv=None):
                     replaces=sources[n], launches=main[n], max_abs_err=errs[n],
                     ms=times[n][0], plain_ms=times[n][1], bound_ms=bounds[n][0],
                     bound_by=bounds[n][1],
-                    library_ms=pcg_library_ms if n == "pcg" else None)
+                    library_ms=pcg_library_ms if n == "pcg" else None,
+                    plants=list(_build.KERNELS[n]))
                for n in ("bsqp_iter", "rk4", "iter", "kkt", "pcg", "merit")]
+    # the second plant's numbers beside the first's: held and timed in
+    # [iiwa14-kernels], launched on [bench-iiwa14]'s K cycles
+    for k in kernels:
+        if IIWA in k["plants"]:
+            n = k["name"]
+            k[IIWA] = dict(launches=bench_i["launches"][n], max_abs_err=kern_i["errs"][n],
+                           ms=kern_i["times"][n][0], plain_ms=kern_i["times"][n][2],
+                           bound_ms=kern_i["bounds"][n][0], bound_by=kern_i["bounds"][n][1])
     for k in kernels:
         log(f"[bound] {k['name']}: {k['ms']:.4f} ms on the card, bound "
             f"{k['bound_ms']:.5f} ms by {k['bound_by']} "

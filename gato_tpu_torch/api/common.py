@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..dynamics.algorithms import fd, fk, joint_transforms
-from ..ops.cuda_sim import CUDA_ROBOTS, rk4_step_batched
+from ..ops.cuda_sim import has_cuda_kernel, rk4_step_batched
 from ..robots.model import RobotModel
 
 
@@ -83,13 +83,14 @@ def rk4_step(model: RobotModel, x, u, dt: float, f_ext_world=None,
     `substeps` sub-intervals (common.py:49-91), optionally under a constant
     world-frame wrench f_ext_world (6,) = [force; torque] at the EE link.
 
-    Where the JAX package's kernel serves (a plant with generated CUDA
-    dynamics, no world wrench) this is the RK4 kernel csrc/rk4.cu on a CUDA
-    tensor and its plain version on a CPU tensor; a failed launch raises.
-    A world wrench, or a plant without generated CUDA (the pendulum, iiwa14),
-    takes the rigid-body algorithms on either device, as the JAX package
-    takes its XLA rk4_step outside any Pallas kernel."""
-    if f_ext_world is None and model.name in CUDA_ROBOTS:
+    Where the JAX package's kernel serves (a plant the rk4 kernel is built
+    for, indy7 or iiwa14, and no world wrench) this is the RK4 kernel
+    csrc/rk4.cu on a CUDA tensor and its plain version on a CPU tensor; a
+    failed launch raises. A world wrench, or a plant without generated CUDA
+    (the pendulum-augmented ones), takes the rigid-body algorithms on
+    either device, as the JAX package takes its XLA rk4_step outside any
+    Pallas kernel."""
+    if f_ext_world is None and has_cuda_kernel(model, "rk4"):
         return rk4_step_batched(model, x[None].contiguous(), u[None].contiguous(),
                                 dt, substeps=substeps)[0]
     return _rk4_algorithms(model, x, u, dt, f_ext_world, substeps)

@@ -61,3 +61,35 @@ PENDULUM_DEFAULT_PARAMS = {
     "damping": 0.4,
     "initial_angle": np.array([0.3, 0.0, 0.0]),
 }
+
+# config.py:52-94: the pick-and-place presets (examples/pickplace.py)
+PICKPLACE_SOLVER_PARAMS = {
+    "max_sqp_iters": 5,
+    "kkt_tol": 0.0,
+    "max_pcg_iters": 100,
+    "pcg_tol": 1e-6,
+    "solve_ratio": 1.0,
+    "mu": 10.0,
+    "q_cost": 5.0,
+    "qd_cost": 1e-2,
+    "u_cost": 5e-7,
+    "N_cost": 50.0,
+    "q_lim_cost": 0.0,
+    "vel_lim_cost": 0.0,
+    "ctrl_lim_cost": 0.0,
+    "rho": 0.001,
+}
+
+PICKPLACE_MPC_DEFAULTS = {
+    "goal_timeout": 5.0,
+    "goal_threshold": 0.05,
+    "velocity_threshold": 1.0,
+}
+
+PICKPLACE_DEFAULT_GOALS = [
+    np.array([0.5, -0.1865, 0.5]),
+    np.array([0.5, 0.5, 0.2]),
+    np.array([0.3, 0.3, 0.8]),
+    np.array([0.6, -0.5, 0.2]),
+    np.array([0.0, -0.5, 0.8]),
+]

@@ -22,7 +22,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from ..ops.cuda_sim import CUDA_ROBOTS
+from ..ops.cuda_sim import has_cuda_kernel
 from ..robots.model import RobotModel
 from ..robots.urdf import spatial_inertia
 from .common import rk4_step, world_wrench_to_ee_frame
@@ -155,7 +155,8 @@ class MPC_GATO:
         # a CUDA graph per (substeps, step length); the RK4 kernel is one
         # launch and needs none
         self._graphs = ({} if self.device.type == "cuda" and (
-            self._sim_fext is not None or self.sim_model.name not in CUDA_ROBOTS) else None)
+            self._sim_fext is not None or not has_cuda_kernel(self.sim_model, "rk4"))
+            else None)
         # estimator="sphere": the reference's random-search ForceEstimator;
         # "observer": the Gauss-Newton wrench observer
         # (api/force_estimator_device.py), fed the previous cycle's

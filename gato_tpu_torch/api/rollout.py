@@ -26,11 +26,12 @@ inputs, after it its outputs into (n_steps, ...) tensors. The solve is
 solve_batched with the exit kept on the device (bsqp_iter, max_sqp_iters
 launches a cycle at N <= 128). The plant step follows the JAX package's TPU
 branch: rk4_step_batched (csrc/rk4.cu on the card) over sim_substeps in one
-launch, with the estimator loop's EE-frame wrench. A plant without
-generated CUDA dynamics (the pendulum-augmented indy7, iiwa14) steps on
-the rigid-body algorithms (api/common.py::_rk4_algorithms), as MPC_GATO's
-plant does, inside the same graph: rk4.cu is generated for indy7 only
-(ROADMAP Queue 1 item 2). The predictions that score the lanes follow the
+launch, with the estimator loop's EE-frame wrench, for a plant the
+kernel is built for (indy7, iiwa14). A plant without generated CUDA
+dynamics (the pendulum-augmented indy7 and iiwa14) steps on the
+rigid-body algorithms (api/common.py::_rk4_algorithms), as MPC_GATO's
+plant does, inside the same graph (ROADMAP Queue 1 item 2: a generated
+fd for the pendulum plant). The predictions that score the lanes follow the
 JAX code: the solver's integrator (ops/integrators.py::sim_step) or RK4 on
 the rigid-body algorithms (the JAX package's _rk4).
 
@@ -48,7 +49,7 @@ from dataclasses import fields, replace
 import torch
 
 from ..dynamics.algorithms import fk
-from ..ops.cuda_sim import CUDA_ROBOTS, rk4_step_batched
+from ..ops.cuda_sim import has_cuda_kernel, rk4_step_batched
 from ..ops.cuda_solve import sqp_iter_cuda
 from ..ops.integrators import sim_step
 from ..solver.bsqp import solve_batched
@@ -138,7 +139,7 @@ def _plant_step(sim_model, x, u, control_dt, substeps, f_ext=None):
     """sim_substeps RK4 substeps of the plant over control_dt: the rk4
     kernel for a plant with generated CUDA dynamics (its plain version on
     the CPU), else the rigid-body algorithms. f_ext: EE-frame wrench (6,)."""
-    if sim_model.name in CUDA_ROBOTS:
+    if has_cuda_kernel(sim_model, "rk4"):
         fe = None if f_ext is None else f_ext[None].contiguous()
         return rk4_step_batched(sim_model, x[None].contiguous(), u[None].contiguous(),
                                 control_dt, fe, substeps)[0]

@@ -9,7 +9,9 @@
 // listed in sqp_iter.cuh.
 // The semantics follow pallas_solve.solve_channels with the internal exit
 // disabled (chained mode), and the plain PyTorch version
-// ops/cuda_solve.py::sqp_iter_reference.
+// ops/cuda_solve.py::sqp_iter_reference. It is compiled once per plant
+// (csrc/robot.cuh), for indy7 and iiwa14: entry points
+// gato_bsqp_iter_<plant>.
 //
 // Bound: the PCG loop (phase D) was bound by re-reading each knot's four
 // 12x12 blocks (~2.3 KB per knot per iteration) from a global scratch that
@@ -44,7 +46,7 @@ extern "C" int gato_bsqp_iter_blocks_per_sm(int N, int layout, int G, int staged
   return gato::blocks_per_sm<true>(N, layout, G, staged);
 }
 
-extern "C" int gato_bsqp_iter_indy7(const gato::IterArgs* args, int layout, int G,
-                                    int staged, void* stream) {
+extern "C" int GATO_ENTRY(gato_bsqp_iter)(const gato::IterArgs* args, int layout, int G,
+                                          int staged, void* stream) {
   return gato::launch_iteration<true>(args, layout, G, staged, stream);
 }

@@ -32,7 +32,7 @@ extern "C" int gato_iter_blocks_per_sm(int N, int layout, int G, int staged) {
   return gato::blocks_per_sm<false>(N, layout, G, staged);
 }
 
-extern "C" int gato_iter_indy7(const gato::IterArgs* args, int layout, int G,
-                                int staged, void* stream) {
+extern "C" int GATO_ENTRY(gato_iter)(const gato::IterArgs* args, int layout, int G,
+                                     int staged, void* stream) {
   return gato::launch_iteration<false>(args, layout, G, staged, stream);
 }

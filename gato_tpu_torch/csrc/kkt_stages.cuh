@@ -12,12 +12,15 @@
 // balances the parts' straight-line code (about 2.7k lines each at G = 4
 // against knot_kkt's 13.2k), so each thread's live set is a part's.
 #pragma once
-#include "generated/indy7.cuh"
+#include "robot.cuh"
+
+#ifndef GATO_KKT_STAGES
+#error "the staged KKT needs a plant generated with a split (dynamics/codegen.py KKT_SPLITS)"
+#endif
 
 namespace gato {
 namespace kkt_stages {
 
-namespace robot = gato::indy7;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
 // a knot's qdd (NQ) and Minv (NQ x NQ, column-major: Minv[c NQ + r]) in

@@ -93,7 +93,9 @@ namespace {
 namespace cg = cooperative_groups;
 using gato::block_sum;
 using gato::clamp_term;
-constexpr int NX = 12;  // indy7, the only plant with generated CUDA dynamics
+// indy7's state size, the only plant pcg is built for (_build.KERNELS); the
+// wrapper (ops/cuda_pcg.py) refuses another nx, and so does gato_pcg
+constexpr int NX = 12;
 constexpr int BLK = NX * NX;
 enum Layout { kGlobal = 0, kShared = 1, kCluster = 2 };
 

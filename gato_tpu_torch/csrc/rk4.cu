@@ -1,5 +1,7 @@
-// RK4 plant step: x (B, 12), u (B, 6) and an optional EE-frame wrench
-// (B, 6) -> x after `substeps` RK4 steps of h = dt / substeps.
+// RK4 plant step: x (B, 2 NQ), u (B, NQ) and an optional EE-frame wrench
+// (B, 6) -> x after `substeps` RK4 steps of h = dt / substeps. Compiled
+// once per plant (csrc/robot.cuh), for indy7 (NQ = 6) and iiwa14 (NQ = 7):
+// entry points gato_rk4_<plant>.
 //
 // Replaces gato_tpu/ops/pallas_sim.py::_rk4_kernel (body rk4_channels). The
 // JAX package runs it at B = 1 (the MPC loop's plant, the rollouts' x[None]
@@ -26,17 +28,17 @@
 // Bound: at B = 1 neither bytes (30 floats in, 12 out) nor the card's
 // arithmetic rate: the chain of dependent operations. One fd as the crba
 // variant runs it is the deeper of fd_crba and fd_bias, then fd_solve (the
-// depths in csrc/generated/indy7.cuh); a lone warp issues one instruction
-// a cycle at best, so the CRBA lane's 1,521 operations a stage weigh as
-// much as the chain. The one variant issues all 2,596 operations of fd
-// from one thread.
+// depths in csrc/generated/<plant>.cuh); a lone warp issues one
+// instruction a cycle at best, so the CRBA lane's 1,521 operations a stage
+// (indy7; iiwa14 1,222) weigh as much as the chain. The one variant issues
+// all of fd's operations (indy7 2,596, iiwa14 2,284) from one thread.
 #include <cuda_runtime.h>
 
-#include "generated/indy7.cuh"
+#include "robot.cuh"
 
 namespace {
 
-namespace robot = gato::indy7;
+namespace robot = gato::robot;
 constexpr int NQ = robot::NQ;
 constexpr int SPLIT_THREADS = 64;
 constexpr int BIAS_THREAD = 32;  // lane 0 of warp 1
@@ -174,9 +176,9 @@ __global__ void rk4_one_kernel(const float* __restrict__ x,
 // x (B, 2 NQ), u (B, NQ), fe (B, 6) or null, out (B, 2 NQ); float32,
 // contiguous. h = dt / substeps; variant 1: crba, 0: one. Returns
 // cudaGetLastError() of the launch; nothing falls back.
-extern "C" int gato_rk4_indy7(const float* x, const float* u, const float* fe,
-                              float* out, int B, float h, int substeps, int variant,
-                              void* stream) {
+extern "C" int GATO_ENTRY(gato_rk4)(const float* x, const float* u, const float* fe,
+                                   float* out, int B, float h, int substeps, int variant,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     rk4_split_kernel<<<B, SPLIT_THREADS, 0, st>>>(x, u, fe, out, h, substeps);

@@ -5,14 +5,14 @@
 //   A  KKT: thread k calls the generated knot_kkt (dynamics linearization by
 //      sparse duals, defect, cost gradient/Hessian; the tracking weight is
 //      N_cost on the last knot) and inverts its Q~ blocks (Cholesky of the
-//      6x6 qq block + rho I, reciprocal of the diagonal qd block and of R).
-//      With kStaged (the shared layout at G = 4) the G threads of knot k
+//      NQ x NQ qq block + rho I, reciprocal of the diagonal qd block and of
+//      R). With kStaged (indy7's shared layout at G = 4) the G threads of knot k
 //      compute the KKT blocks in the stages of csrc/kkt_stages.cuh instead
 //      (qdd and Minv staged in the PCG vectors' shared memory, idle until
 //      phase D), thread k of group 0 inverts the Q~ blocks, and group g
 //      computes rows [3g, 3g + 3) of phi_k;
 //   B  Schur: theta_k, gamma_{k+1}, S_main_{k+1} = -theta_k and the SS
-//      preconditioner block -(theta_k + rho I~)^-1 (12x12 Cholesky); with
+//      preconditioner block -(theta_k + rho I~)^-1 (NX x NX Cholesky); with
 //      kStaged group g computes rows g, 7 - g, 8 + g of theta (from the
 //      diagonal on, both triangles stored) and gamma, then, after a
 //      barrier, factors theta + rho I~ itself and solves columns [3g, 3g +
@@ -37,13 +37,20 @@
 // kStaged spreads them as above; the other groups join phase D and the
 // barriers.
 //
+// The plant is the one the library is compiled for (csrc/robot.cuh: NQ, NX
+// and the generated functions of gato::robot); the sizes below are indy7's
+// (NX = 12) where they are numbers. iiwa14 (NX = 14) has no staged KKT
+// (its header defines no GATO_KKT_STAGES): its phase A is the one-thread
+// knot_kkt in every variant, and its shared layout takes G in {1, 2, 7},
+// the G that divide its 14 rows with G W <= MAX_THREADS.
+//
 // Phase D comes in two layouts (the template parameter kBlocks):
-//   kShared  phases A-C write the problem's four 12x12 blocks per knot
+//   kShared  phases A-C write the problem's four NX x NX blocks per knot
 //            (S_main, phi = S_lower, P_main, P_lower: 2,304 bytes a knot)
 //            into dynamic shared memory, element-major (element e of knot k
 //            at e N + k, so a warp's consecutive knots hit consecutive
 //            banks), and the Krylov loop reads them from there. Group g
-//            computes rows [12g/G, 12(g+1)/G) of its knot in each matvec and
+//            computes rows [NX g/G, NX (g+1)/G) of its knot in each matvec and
 //            vector update, keeping lam, r, p, z and Ap of those rows in
 //            registers; r and p go to shared memory (element-major) for the
 //            neighbours' matvecs. A row sums main, then lower, then upper
@@ -54,8 +61,9 @@
 //            the ones the data needs (r and p complete before a matvec reads
 //            a neighbour's rows, the partials complete before a dot's sum);
 //            a block of one warp syncs with __syncwarp and sums with
-//            shuffles. It fits 232,448 bytes up to N = 86;
-//            ops/cuda_iter.py takes it up to N = 64.
+//            shuffles. It fits 232,448 bytes up to N = 86 for indy7 and
+//            N = 64 for iiwa14 (3,136 bytes a knot, 230,600 bytes at G = 2);
+//            ops/cuda_iter.py takes it up to N = 64 for both.
 //   kGlobal  one thread per knot (G = 1); the blocks stay in the
 //            element-major global scratch and the loop re-reads them every
 //            iteration (the layout for 64 < N <= 128).
@@ -67,9 +75,11 @@
 #include <cuda_runtime.h>
 
 #include "block_ops.cuh"
-#include "generated/indy7.cuh"
-#include "kkt_stages.cuh"
 #include "krylov.cuh"
+#include "robot.cuh"
+#ifdef GATO_KKT_STAGES
+#include "kkt_stages.cuh"
+#endif
 
 namespace gato {
 
@@ -126,7 +136,6 @@ namespace iter_detail {
 using krylov::btd_rows;
 using krylov::knot_total;
 using krylov::rows_dot;
-namespace robot = gato::indy7;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
 constexpr int NU = NQ;
@@ -346,6 +355,7 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
   __syncthreads();
 
   // ---- A: KKT blocks and Q~^-1, R^-1 of knot k ----
+#ifdef GATO_KKT_STAGES
   if constexpr (kStaged) {
     // qdd and Minv of knot k in the PCG vectors (sR on), idle until phase D
     static_assert(kkt_stages::DYN_FLOATS <= 4 * NX, "qdd and Minv fit r, p, z, Ap");
@@ -368,6 +378,9 @@ __device__ __forceinline__ void sqp_iteration(const IterArgs& a) {
     }
     __syncthreads();
   }
+#else
+  static_assert(!kStaged, "the plant has no staged KKT (GATO_KKT_STAGES)");
+#endif
   if (on) {
     if constexpr (!kStaged) {
       float xn[NX];
@@ -729,23 +742,40 @@ iteration_kernel(const IterArgs a) {
 
 using IterationKernel = void (*)(IterArgs);
 
-// The compiled variants: (global, 1) and (shared, 1 | 2 | 4) with the
-// one-thread phase A, (shared, 4) with the staged one; null for any other
-// (layout, G, staged).
+// The shared layout at G threads per knot with the one-thread phase A,
+// compiled where G divides the plant's NX rows and G warps fit
+// MAX_THREADS; null elsewhere.
+template <bool kLineSearch, int G>
+inline IterationKernel shared_variant() {
+  if constexpr (iter_detail::NX % G == 0 && 32 * G <= iter_detail::MAX_THREADS)
+    return iteration_kernel<kLineSearch, Blocks::kShared, G, false>;
+  else
+    return nullptr;
+}
+
+// The compiled variants: (global, 1) and (shared, G) with the one-thread
+// phase A, G in {1, 2, 4} for indy7 and {1, 2, 7} for iiwa14
+// (shared_variant); (shared, 4) with the staged one, for a plant with a
+// staged KKT (indy7); null for any other (layout, G, staged).
 template <bool kLineSearch>
 inline IterationKernel iteration_variant(int layout, int G, int staged) {
   if (staged) {
+#ifdef GATO_KKT_STAGES
     return layout == (int)Blocks::kShared && G == 4
                ? iteration_kernel<kLineSearch, Blocks::kShared, 4, true>
                : nullptr;
+#else
+    return nullptr;
+#endif
   }
   if (layout == (int)Blocks::kGlobal && G == 1)
     return iteration_kernel<kLineSearch, Blocks::kGlobal, 1, false>;
   if (layout != (int)Blocks::kShared) return nullptr;
   switch (G) {
-    case 1: return iteration_kernel<kLineSearch, Blocks::kShared, 1, false>;
-    case 2: return iteration_kernel<kLineSearch, Blocks::kShared, 2, false>;
-    case 4: return iteration_kernel<kLineSearch, Blocks::kShared, 4, false>;
+    case 1: return shared_variant<kLineSearch, 1>();
+    case 2: return shared_variant<kLineSearch, 2>();
+    case 4: return shared_variant<kLineSearch, 4>();
+    case 7: return shared_variant<kLineSearch, 7>();
     default: return nullptr;
   }
 }

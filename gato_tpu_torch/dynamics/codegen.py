@@ -22,8 +22,9 @@ of two warps (csrc/rk4.cu):
   fd_crba(q) -> M                                 (CRBA, lower triangle)
   fd_solve(M, u, bias) -> qdd                     (the unrolled Cholesky)
 
-and knot_kkt once more in stages, for kernels that share a knot among
-threads (csrc/kkt.cu, phase A of csrc/sqp_iter.cuh):
+and, for a robot with a staged split (KKT_SPLITS: indy7), knot_kkt once
+more in stages, for kernels that share a knot among threads (csrc/kkt.cu,
+phase A of csrc/sqp_iter.cuh); its header defines GATO_KKT_STAGES:
 
   knot_dyn(q, qd, u, fe) -> qdd, Minv             (fd_primal_channels)
   knot_cost(q, qd, u, r3, w_track, w) -> Q, qv, R_diag, rv   (cost_channels)
@@ -71,10 +72,14 @@ GENERATED_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "generated")
 
 # robots whose header is generated and committed
-ROBOTS = ("indy7",)
-# the part counts G of the staged KKT's split of the tangent directions:
-# csrc/kkt.cu's KKT_GROUPS = 2 and sqp_iter.cuh's 4 groups
-KKT_SPLITS = (2, 4)
+ROBOTS = ("indy7", "iiwa14")
+# each robot's part counts G of the staged KKT's split of the tangent
+# directions: indy7's for csrc/kkt.cu's KKT_GROUPS = 2 and the staged phase
+# A's 4 groups (sqp_iter.cuh). iiwa14 has none: it takes neither kkt.cu nor
+# the staged phase A (written for 12 rows in 4 groups), so its header holds
+# only what bsqp_iter's one-thread phase A and rk4 call (fd, knot_kkt,
+# knot_merit, fd_bias, fd_crba, fd_solve)
+KKT_SPLITS = {"indy7": (2, 4), "iiwa14": ()}
 
 _FUNCS = {"sqrt": "gsqrt", "sin": "gsin", "cos": "gcos", "log": "glog",
           "abs": "gabs", "max": "gmax"}
@@ -403,11 +408,12 @@ def generate(robot: str) -> str:
     model = load_robot(robot, torch.float64, device="cpu")
     cd = _get_cd(model.key)
     nq = cd.nq
+    splits = KKT_SPLITS[robot]
     parts = [
         f"// Generated by `python -m gato_tpu_torch.dynamics.codegen` from the "
         f"{robot} URDF. Do not edit.",
-        "// Straight-line forward dynamics, per-knot KKT blocks (whole, and in "
-        "stages) and per-knot merit terms,",
+        "// Straight-line forward dynamics, per-knot KKT blocks"
+        + (" (whole, and in stages)" if splits else "") + " and per-knot merit terms,",
         "// traced from gato_tpu_torch/ops/{kkt_fast,merit_fast}.py with the "
         "robot constants folded.",
         "// Weights w: q_cost, qd_cost, u_cost, N_cost, q_lim_cost, "
@@ -417,47 +423,56 @@ def generate(robot: str) -> str:
         "strided accessor.",
         "#pragma once",
         '#include "../gato_math.cuh"',
+    ]
+    if splits:
+        parts += ["// knot_dyn, knot_cost, knot_defect, knot_dual<G, P>, knot_ab<G, P> below",
+                  "#define GATO_KKT_STAGES 1"]
+    parts += [
         "",
         f"namespace gato {{ namespace {robot} {{",
         "",
         f"constexpr int NQ = {nq};",
         f"constexpr int NX = {2 * nq};",
     ]
-    em, cols = _dual_trace(cd, nq)
     funcs = [_gen_fd(cd, nq), _gen_knot_kkt(cd, model.key, nq),
-             _gen_knot_merit(cd, model.key, nq), _gen_knot_dyn(cd, nq),
-             _gen_knot_cost(cd, model.key, nq), _gen_knot_defect(nq),
-             _gen_fd_bias(cd, nq), _gen_fd_crba(cd, nq), _gen_fd_solve(cd, nq)]
-    tables, groups_parts = [
-        "",
-        "// The staged KKT's split of the dual RNEA's tangent directions: part P of",
-        "// G holds directions KKT_DIRS_G<G>[P] (z < NQ: q_z; z >= NQ: qd_{z - NQ};",
-        "// -1 pads), knot_dual<G, P> computes their dID columns, knot_ab<G, P>",
-        "// their A columns and B's columns c = P mod G."], []
-    for g in KKT_SPLITS:
+             _gen_knot_merit(cd, model.key, nq)]
+    if splits:
+        funcs += [_gen_knot_dyn(cd, nq), _gen_knot_cost(cd, model.key, nq),
+                  _gen_knot_defect(nq)]
+    funcs += [_gen_fd_bias(cd, nq), _gen_fd_crba(cd, nq), _gen_fd_solve(cd, nq)]
+    groups_parts = []
+    if splits:
+        em, cols = _dual_trace(cd, nq)
+        parts += [
+            "",
+            "// The staged KKT's split of the dual RNEA's tangent directions: part P of",
+            "// G holds directions KKT_DIRS_G<G>[P] (z < NQ: q_z; z >= NQ: qd_{z - NQ};",
+            "// -1 pads), knot_dual<G, P> computes their dID columns, knot_ab<G, P>",
+            "// their A columns and B's columns c = P mod G."]
+    for g in splits:
         parts_g, sizes = split_directions(em, cols, g)
         rows = ", ".join("{" + ", ".join(map(str, d + [-1] * (2 * nq - len(d)))) + "}"
                          for d in parts_g)
-        tables += [f"// G = {g}: knot_dual's parts run {', '.join(map(str, sizes))} lines.",
-                   f"constexpr int KKT_DIRS_G{g}[{g}][NX] = {{{rows}}};"]
+        parts += [f"// G = {g}: knot_dual's parts run {', '.join(map(str, sizes))} lines.",
+                  f"constexpr int KKT_DIRS_G{g}[{g}][NX] = {{{rows}}};"]
         for p, dirs in enumerate(parts_g):
             funcs.append(_gen_knot_dual(em, cols, dirs, nq, f"knot_dual_g{g}_p{p}"))
             funcs.append(_gen_knot_ab(cols, dirs, [c for c in range(nq) if c % g == p],
                                       nq, f"knot_ab_g{g}_p{p}"))
             groups_parts.append((g, p))
-    parts += tables
     for sig, body, (ops, depth) in funcs:
         tmpl = "typename T, typename O" if " O " in sig else "typename T"
         parts += ["", f"// {sig[:sig.index('(')]}: {ops} operations, dependency depth {depth}",
                   f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
         parts += body
         parts.append("}")
-    parts += [""] + _dispatch(
-        "knot_dual", "q, qd, qdd, fe, dID",
-        "const T* q, const T* qd, const T* qdd, const T* fe, O dID", groups_parts)
-    parts += [""] + _dispatch(
-        "knot_ab", "Minv, dID, dt, A, B",
-        "const T* Minv, const T* dID, T dt, O A, O B", groups_parts)
+    if groups_parts:
+        parts += [""] + _dispatch(
+            "knot_dual", "q, qd, qdd, fe, dID",
+            "const T* q, const T* qd, const T* qdd, const T* fe, O dID", groups_parts)
+        parts += [""] + _dispatch(
+            "knot_ab", "Minv, dID, dt, A, B",
+            "const T* Minv, const T* dID, T dt, O A, O B", groups_parts)
     parts += ["", f"}}}}  // namespace gato::{robot}", ""]
     return "\n".join(parts)
 
@@ -478,7 +493,8 @@ def main():
         text = generate(robot)
         with open(header_path(robot), "w") as f:
             f.write(text)
-        print(f"wrote {header_path(robot)} ({text.count(chr(10))} lines)")
+        print(f"wrote {header_path(robot)} ({text.count(chr(10))} lines, "
+              f"{len(text.encode())} bytes)")
         for name, (ops, depth) in header_stats(text).items():
             print(f"  {name}: {ops} operations, dependency depth {depth}")
 

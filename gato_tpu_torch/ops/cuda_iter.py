@@ -8,18 +8,22 @@ Port of gato_tpu/ops/pallas_iter.py:
   sqp_iter_core_cuda       the kernel wrapper: csrc/iter.cu on a CUDA
                            tensor (one block per problem, N <= 128), the
                            plain version on a CPU tensor;
-  iteration_variant        the kernel variant that N takes: the PCG blocks
-                           in shared memory with G threads per knot up to
-                           N = 64, in the global scratch past that;
+  iteration_variant        the kernel variant that N and the plant take: the
+                           PCG blocks in shared memory with G threads per
+                           knot up to N = 64, in the global scratch past
+                           that;
   phase_a_default          phase A's KKT in the variant: staged over the
                            G = 4 threads of a knot (csrc/kkt_stages.cuh) in
-                           the shared layout at G = 4, one thread per knot
-                           running the whole knot_kkt elsewhere;
+                           indy7's shared layout at G = 4, one thread per
+                           knot running the whole knot_kkt elsewhere (every
+                           iiwa14 variant: its header has no staged KKT);
   launch_iteration         builds the IterArgs of csrc/sqp_iter.cuh and
                            launches csrc/iter.cu or csrc/bsqp_iter.cu.
 
 Like the TPU kernel, the core does not scrub non-finite steps: the caller
-does (ops/cuda_solve.py::sqp_iter_fused).
+does (ops/cuda_solve.py::sqp_iter_fused). bsqp_iter is built for indy7
+and iiwa14, iter for indy7 (_build.KERNELS); the sizes follow the plant's
+nx and nu (nx = 2 nu).
 """
 
 from __future__ import annotations
@@ -37,22 +41,28 @@ from .pcg import pcg_solve_batched
 from .schur import build_schur, compute_dz
 
 MAX_KNOTS = 128  # one thread per knot in group 0, __launch_bounds__(128)
-NX, NU = 12, 6
-BLOCK_FLOATS = 4 * NX * NX  # S_main, phi, P_main, P_lower of one knot
 MERIT_SLOTS = 16  # merits in shared memory
 SMEM_LIMIT = 232_448  # dynamic shared memory of one block on sm_90
 MAX_THREADS = 256  # G W threads at 255 registers each fill an SM's 65,536
 LAYOUTS = {"global": 0, "shared": 1}
-# the shared layout's last N: every N of the bench grid but 128 (it would
-# fit up to N = 86)
+# the shared layout's last N, both plants: every N of the bench grid but
+# 128. It is the last N that iiwa14's fits (nx = 14: 230,600 bytes at G = 2,
+# 234,696 at N = 65); indy7's would fit up to N = 86.
 SHARED_MAX_N = 64
-# threads per knot (G) in the shared layout, both kernels: the fastest of
-# G in {1, 2, 4} in chip_smoke.py's timings at N=32, B=512 (PERF.md); at
-# N=64 bsqp_iter's G=2 is within 3 % of it. G W stays within MAX_THREADS.
-SHARED_GROUPS = 4
-# the one variant with the staged phase A: G = 4 groups, one part each
-STAGED_A = ("shared", 4)
+# threads per knot (G) in the shared layout by the plant's nx, both
+# kernels, from the G compiled for it (csrc/sqp_iter.cuh::shared_variant:
+# those that divide nx). indy7 (12): the fastest of G in {1, 2, 4} in
+# chip_smoke.py's timings at N=32, B=512 (PERF.md); at N=64 bsqp_iter's
+# G=2 is within 3 % of it. iiwa14 (14): the fastest of G in {1, 2, 7}
+# there (PERF.md); G W stays within MAX_THREADS up to N = 64.
+SHARED_GROUPS = {12: 4, 14: 2}
+COMPILED_GROUPS = {12: (1, 2, 4), 14: (1, 2, 7)}
+# the one variant with the staged phase A, for the plant with a staged KKT
+# (indy7, nx = 12): G = 4 groups, one part each
+STAGED_A = {12: ("shared", 4)}
 PHASE_A = ("one", "staged")
+# the state size of each plant the iteration kernels are built for
+PLANT_NX = {"indy7": 12, "iiwa14": 14}
 
 
 def warp_threads(N: int) -> int:
@@ -60,41 +70,46 @@ def warp_threads(N: int) -> int:
     return 32 * ((N + 31) // 32)
 
 
-def smem_bytes(N: int, layout: str, groups: int) -> int:
-    """Dynamic shared memory of one block, the formula of
-    csrc/sqp_iter.cuh::smem_bytes: X, U, lam, r, p, z, Ap, dz, 32 warp
-    partials, the merits, the line search's two words; the shared layout
-    adds the four 12x12 blocks of every knot and two buffers of one dot
-    partial per thread."""
-    floats = N * (7 * NX + 2 * NU) + 32 + MERIT_SLOTS + 2
+def smem_bytes(N: int, layout: str, groups: int, nx: int = 12) -> int:
+    """Dynamic shared memory of one block for a plant of state size nx
+    (nu = nx / 2), the formula of csrc/sqp_iter.cuh::smem_bytes: X, U, lam,
+    r, p, z, Ap, dz, 32 warp partials, the merits, the line search's two
+    words; the shared layout adds the four nx x nx blocks of every knot and
+    two buffers of one dot partial per thread."""
+    nu = nx // 2
+    floats = N * (7 * nx + 2 * nu) + 32 + MERIT_SLOTS + 2
     if layout == "shared":
-        floats += BLOCK_FLOATS * N + 2 * groups * warp_threads(N)
+        floats += 4 * nx * nx * N + 2 * groups * warp_threads(N)
     return 4 * floats
 
 
-def iteration_variant(N: int) -> tuple[str, int]:
+def iteration_variant(N: int, nx: int = 12) -> tuple[str, int]:
     """(layout, G) of both iteration kernels (csrc/bsqp_iter.cu,
-    csrc/iter.cu) at horizon N: the blocks in shared memory with
-    SHARED_GROUPS threads per knot up to SHARED_MAX_N, the global scratch
-    with one thread per knot past it. Not a user setting: N decides."""
+    csrc/iter.cu) at horizon N for a plant of state size nx: the blocks in
+    shared memory with SHARED_GROUPS[nx] threads per knot up to
+    SHARED_MAX_N, the global scratch with one thread per knot past it.
+    Not a user setting: N and the plant decide."""
+    if nx not in SHARED_GROUPS:
+        raise ValueError(f"no iteration kernel is built for nx = {nx}")
     if N <= SHARED_MAX_N:
-        return "shared", SHARED_GROUPS
+        return "shared", SHARED_GROUPS[nx]
     return "global", 1
 
 
-def phase_a_default(layout: str, groups: int) -> str:
+def phase_a_default(layout: str, groups: int, nx: int = 12) -> str:
     """Phase A's KKT in a variant: "staged" (the G threads of a knot share
-    knot_kkt's stages) where the variant is STAGED_A, else "one" (thread k
-    of group 0 runs all of knot_kkt). "one" at STAGED_A is compiled too, as
-    the comparison arm for measurements."""
-    return "staged" if (layout, groups) == STAGED_A else "one"
+    knot_kkt's stages) where the variant is the plant's STAGED_A, else
+    "one" (thread k of group 0 runs all of knot_kkt). "one" at STAGED_A is
+    compiled too, as the comparison arm for measurements."""
+    return "staged" if (layout, groups) == STAGED_A.get(nx) else "one"
 
 
-def _phase_a_code(layout: str, groups: int, phase_a: str | None) -> int:
-    phase_a = phase_a or phase_a_default(layout, groups)
-    if phase_a not in PHASE_A or (phase_a != "one" and (layout, groups) != STAGED_A):
+def _phase_a_code(layout: str, groups: int, phase_a: str | None, nx: int) -> int:
+    phase_a = phase_a or phase_a_default(layout, groups, nx)
+    if phase_a not in PHASE_A or (phase_a != "one"
+                                  and (layout, groups) != STAGED_A.get(nx)):
         raise ValueError(f"phase A {phase_a!r} is not compiled for the "
-                         f"{layout} layout at G={groups}")
+                         f"{layout} layout at G={groups} (nx = {nx})")
     return PHASE_A.index(phase_a)
 
 
@@ -124,12 +139,13 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
     and `phase_a` ("staged" or "one") name the kernel variant for a
     measurement; None takes iteration_variant(N) and phase_a_default. A
     launch that the card refuses raises."""
-    require_cuda_robot(model)
+    require_cuda_robot(model, name)
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
                                   "trapezoidal integrator (integrator_type=2)")
     X = tensors["X"]
-    B, N, nx = X.shape
+    B, N = X.shape[:2]
+    nx = model.nx
     if not 2 <= N <= MAX_KNOTS:
         raise ValueError(f"{name} kernel takes 2 <= N <= {MAX_KNOTS} (one "
                          f"thread per knot), got N={N}")
@@ -141,15 +157,15 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
     if ref.shape[-1] < 3:
         raise ValueError("ref needs the EE xyz in its first 3 columns")
 
-    lib = load_library(name)
+    lib = load_library(name, model.name)
     knot_floats = getattr(lib, f"gato_{name}_knot_floats")
     knot_floats.restype = ctypes.c_int
-    fn = getattr(lib, f"gato_{name}_indy7")
+    fn = getattr(lib, f"gato_{name}_{model.name}")
     fn.argtypes = [ctypes.POINTER(_IterArgs), ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    layout, groups = variant or iteration_variant(N)
-    staged = _phase_a_code(layout, groups, phase_a)
+    layout, groups = variant or iteration_variant(N, nx)
+    staged = _phase_a_code(layout, groups, phase_a, nx)
     scratch = torch.empty(knot_floats() * B * N, dtype=torch.float32,
                           device=X.device)
     args = _IterArgs(scratch=scratch.data_ptr(),
@@ -161,24 +177,24 @@ def launch_iteration(name: str, model: RobotModel, cp: CostParams,
     err = fn(ctypes.byref(args), LAYOUTS[layout], groups, staged,
              torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch ({layout} layout, G={groups},"
-                           f" phase A {PHASE_A[staged]}, N={N}) failed: "
+        raise RuntimeError(f"{name} kernel launch ({model.name}, {layout} layout, "
+                           f"G={groups}, phase A {PHASE_A[staged]}, N={N}) failed: "
                            f"CUDA error {err}")
 
 
 def variant_resources(name: str, N: int, layout: str, groups: int,
-                      phase_a: str | None = None):
+                      phase_a: str | None = None, robot: str = "indy7"):
     """(shared-memory bytes, resident blocks per SM) of a variant of
-    csrc/<name>.cu at horizon N, as the library reports them
+    csrc/<name>.cu for `robot` at horizon N, as the library reports them
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    lib = load_library(name)
+    lib = load_library(name, robot)
     nbytes = getattr(lib, f"gato_{name}_smem_bytes")
     per_sm = getattr(lib, f"gato_{name}_blocks_per_sm")
     nbytes.argtypes = [ctypes.c_int] * 3
     nbytes.restype = ctypes.c_longlong
     per_sm.argtypes = [ctypes.c_int] * 4
     per_sm.restype = ctypes.c_int
-    staged = _phase_a_code(layout, groups, phase_a)
+    staged = _phase_a_code(layout, groups, phase_a, PLANT_NX[robot])
     return (nbytes(N, LAYOUTS[layout], groups),
             per_sm(N, LAYOUTS[layout], groups, staged))
 
@@ -211,7 +227,8 @@ def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
     (launch_iteration).
 
     The kernel replaces gato_tpu/ops/pallas_iter.py::_iter_kernel with
-    phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh). Up to N = 64 the
+    phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh), built for indy7
+    (another plant raises). Up to N = 64 the
     four threads of a knot share phase A's KKT in stages and the PCG loop
     reads each knot's four 12x12 blocks from shared memory, G threads per
     knot, so its traffic stays on the SM; past that one thread per knot
@@ -221,7 +238,8 @@ def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
         return sqp_iter_core_reference(model, cp, X, U, x_s, ref, f_ext, lam,
                                        rho, pcg_tol, skip, dt, max_pcg_iters,
                                        integrator_type)
-    B, N, nx = X.shape
+    require_cuda_robot(model, "iter")
+    B = X.shape[0]
     for name, t in (("rho", rho), ("pcg_tol", pcg_tol)):
         check_cuda(name, t, (B,))
     if not (skip.is_cuda and skip.dtype == torch.bool and skip.shape == (B,)):

@@ -77,7 +77,7 @@ def setup_kkt_batched_cuda(model: RobotModel, cp: CostParams, X, U, x_s,
     if X.device.type == "cpu":
         return setup_kkt_batched(model, cp, X, U, x_s, ref, f_ext, dt,
                                  integrator_type)
-    require_cuda_robot(model)
+    require_cuda_robot(model, "kkt")
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
                                   "trapezoidal integrator (integrator_type=2)")

@@ -73,7 +73,7 @@ def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
                                     f_ext, mu, dt, alphas, integrator_type)
     variant = variant or DEFAULT
     code = _variant_code(variant)
-    require_cuda_robot(model)
+    require_cuda_robot(model, "merit")
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
                                   "trapezoidal integrator (integrator_type=2)")

@@ -23,11 +23,11 @@ import ctypes
 import torch
 
 from .._build import load_library
-from .cuda_sim import check_cuda
+from .cuda_sim import ROADMAP_ITEM, check_cuda
 from .pcg import pcg_solve_batched
 
 MAX_KNOTS = 1024  # the global variant: one thread per knot, one CTA a problem
-NX = 12  # compiled for indy7's state size
+NX = 12  # compiled for indy7's state size only (_build.KERNELS)
 BLOCK_FLOATS = 4 * NX * NX  # S_main, S_lower, P_main, P_lower of one knot
 MISC_FLOATS = 8 + 4 * NX  # a CTA's totals for the cluster sums, halo rows
 SMEM_LIMIT = 232_448  # dynamic shared memory of one CTA on sm_90
@@ -177,9 +177,11 @@ def pcg_solve_batched_cuda(S_main, S_lower, P_main, P_lower, gamma, lam0,
         return pcg_solve_batched(S_main, S_lower, P_main, P_lower, gamma,
                                  lam0, epsilon, max_iters, skip)
     B, N, nx = gamma.shape
-    if not 1 <= N <= MAX_KNOTS or nx != NX:
-        raise ValueError(f"pcg kernel takes 1 <= N <= {MAX_KNOTS} and nx = "
-                         f"{NX}, got N={N}, nx={nx}")
+    if nx != NX:
+        raise NotImplementedError(f"the pcg kernel is built for nx = {NX} (indy7) "
+                                  f"only, got nx={nx} ({ROADMAP_ITEM})")
+    if not 1 <= N <= MAX_KNOTS:
+        raise ValueError(f"pcg kernel takes 1 <= N <= {MAX_KNOTS}, got N={N}")
     for name, t, shape in (
             ("S_main", S_main, (B, N, nx, nx)),
             ("S_lower", S_lower, (B, N - 1, nx, nx)),

@@ -12,12 +12,16 @@ import ctypes
 
 import torch
 
-from .._build import load_library
+from .._build import KERNELS, load_library
 from ..dynamics import mathshim as ms
 from ..robots.model import RobotModel
 from .merit_fast import _get_cd
 
-CUDA_ROBOTS = ("indy7",)
+# the plants each kernel is generated and built for, {kernel: plants}:
+# bsqp_iter and rk4 for indy7 and iiwa14, iter, kkt, merit and pcg for
+# indy7 (_build.KERNELS)
+CUDA_ROBOTS = KERNELS
+ROADMAP_ITEM = "ROADMAP Queue 1 item 2, code generation for the other plants"
 # the rk4 kernel's variants (csrc/rk4.cu): "one", the default, one thread
 # per problem; "crba", only when forced, spreads each forward dynamics call
 # over two warps (CRBA beside the RNEA bias, fd's own expressions): about
@@ -26,7 +30,7 @@ CUDA_ROBOTS = ("indy7",)
 # earlier kernel
 DEFAULT = "one"
 VARIANTS = ("one", "crba")
-# each variant's code in csrc/rk4.cu's gato_rk4_indy7
+# each variant's code in csrc/rk4.cu's gato_rk4_<plant>
 CODES = {"one": 0, "crba": 1}
 
 
@@ -78,11 +82,19 @@ def check_cuda(name, t, shape):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def require_cuda_robot(model: RobotModel):
-    if model.name not in CUDA_ROBOTS:
+def has_cuda_kernel(model: RobotModel, kernel: str) -> bool:
+    """Whether `kernel` is built for the plant `model` (CUDA_ROBOTS)."""
+    return model.name in CUDA_ROBOTS[kernel]
+
+
+def require_cuda_robot(model: RobotModel, kernel: str):
+    """Raise NotImplementedError, naming the kernel and the ROADMAP item,
+    for a plant that `kernel` is not built for: iiwa14 on iter, kkt, merit
+    and pcg, the pendulum-augmented plants on every kernel."""
+    if not has_cuda_kernel(model, kernel):
         raise NotImplementedError(
-            f"no generated CUDA dynamics for {model.name!r}: only "
-            f"{CUDA_ROBOTS} (ROADMAP Queue 1 item 3, iiwa14 code generation)")
+            f"the {kernel} kernel is not built for {model.name!r}, only for "
+            f"{CUDA_ROBOTS[kernel]} ({ROADMAP_ITEM})")
 
 
 def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
@@ -91,7 +103,8 @@ def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
     f_ext (B, 6) -> (B, nx).
 
     CUDA kernel: csrc/rk4.cu, replacing gato_tpu/ops/pallas_sim.py::
-    _rk4_kernel. By default (DEFAULT, "one") a thread per problem runs
+    _rk4_kernel, built for indy7 and iiwa14 (CUDA_ROBOTS; another plant
+    raises). By default (DEFAULT, "one") a thread per problem runs
     the 4 x substeps forward dynamics calls in series. `variant="crba"`
     forces the two-warp kernel (a CTA per problem: the mass matrix by CRBA
     beside the RNEA bias, then the Cholesky solve on every thread), whose
@@ -101,15 +114,14 @@ def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
     variant = variant or DEFAULT
     if variant not in VARIANTS:
         raise ValueError(f"rk4 kernel variant {variant!r} is not compiled; one of {VARIANTS}")
-    require_cuda_robot(model)
+    require_cuda_robot(model, "rk4")
     B, nx = x.shape
     check_cuda("x", x, (B, model.nx))
     check_cuda("u", u, (B, model.nu))
     if f_ext is not None:
         check_cuda("f_ext", f_ext, (B, 6))
     out = torch.empty_like(x)
-    lib = load_library("rk4")
-    fn = lib.gato_rk4_indy7
+    fn = getattr(load_library("rk4", model.name), f"gato_rk4_{model.name}")
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]

@@ -49,7 +49,7 @@ from .cuda_iter import launch_iteration, sqp_iter_core_cuda
 from .cuda_kkt import setup_kkt_batched_cuda
 from .cuda_merit import merit_alphas_batched_cuda
 from .cuda_pcg import pcg_solve_batched_cuda
-from .cuda_sim import check_cuda
+from .cuda_sim import check_cuda, require_cuda_robot
 from .kkt_fast import setup_kkt_batched
 from .linesearch import line_search_update
 from .merit_fast import merit_alphas_batched
@@ -205,16 +205,19 @@ def sqp_iter_cuda(model: RobotModel, cp: CostParams, prob: Problem,
     The kernel replaces gato_tpu/ops/pallas_solve.py::_solve_kernel as
     launched by sqp_solve_pallas_chained: one thread block per problem
     (N <= 128), one thread per knot outside phase A's KKT and the PCG loop.
-    Up to N = 64 the four threads of a knot share the KKT in stages
-    (csrc/kkt_stages.cuh) and the per-knot 12x12 Schur and preconditioner
-    blocks move into shared memory for the loop, which G threads per knot
-    share, so the loop's traffic stays on the SM, at the residency that the
-    shared memory leaves (2 problems per SM at N = 32). Past N = 64 one
-    thread per knot runs the whole generated KKT code (it spills) and the
-    loop re-reads the blocks from an element-major global scratch.
+    Built for indy7 and iiwa14 (another plant raises). Up to N = 64 the
+    per-knot Schur and preconditioner blocks move into shared memory for
+    the loop, which G threads per knot share, so the loop's traffic stays
+    on the SM, at the residency that the shared memory leaves (2 problems
+    per SM at N = 32 for indy7); indy7's four threads of a knot share the
+    KKT in stages (csrc/kkt_stages.cuh). Past N = 64, and for iiwa14 at
+    every N, one thread per knot runs the whole generated KKT code (it
+    spills); past N = 64 the loop re-reads the blocks from an element-major
+    global scratch.
     """
     if st.X.device.type == "cpu":
         return sqp_iter_reference(model, cp, prob, st, settings, seeded)
+    require_cuda_robot(model, "bsqp_iter")
     B = st.X.shape[0]
     if settings.num_alphas > MAX_ALPHAS:
         raise ValueError(f"bsqp_iter kernel takes num_alphas <= {MAX_ALPHAS},"

@@ -27,7 +27,7 @@ from gato_tpu_torch.dynamics import algorithms as TA
 from gato_tpu_torch.native import SOURCE, NativeRobot, library_path
 from gato_tpu_torch.robots.model import PLANT_URDFS
 from gato_tpu_torch.robots.urdf import parse_urdf
-from torch_port_helpers import models, t64
+from torch_port_helpers import jit_per_sample, models, t64
 
 B = 5
 RTOL = ATOL = 1e-9
@@ -70,7 +70,7 @@ def _jax(jm):
             kinetic_energy=JA.kinetic_energy(jm, q, qd),
             potential_energy=JA.potential_energy(jm, q),
             aba=JA.aba(jm, q, qd, tau, f_ext=fe))
-    return jax.jit(jax.vmap(one))
+    return jit_per_sample(one)
 
 
 @pytest.mark.parametrize("robot", ["indy7", "iiwa14"])

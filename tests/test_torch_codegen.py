@@ -1,13 +1,16 @@
-"""The code generator (gato_tpu_torch.dynamics.codegen) without a card:
-the committed header is what the generator writes today, and the header,
-compiled as host C++ (T = double), computes what the plain PyTorch trace
-computes: fd, knot_kkt and knot_merit to rtol 1e-10 on random inputs; the
-staged functions (knot_dyn, knot_dual, knot_ab, knot_defect, knot_cost),
-composed as csrc/kkt.cu composes them, compute knot_kkt's outputs for every
-split of the tangent directions; and fd's parts, composed as csrc/rk4.cu's
-crba variant composes them (fd_crba, fd_bias, fd_solve), compute fd.
-The header compiles at -O0: the test runs each function a few times, and
-g++ takes a quarter of -O1's time over 50k lines of straight-line code.
+"""The code generator (gato_tpu_torch.dynamics.codegen) without a card,
+for each plant it writes a header for (indy7, iiwa14): the committed header
+is what the generator writes today, and the header, compiled as host C++
+(T = double), computes what the plain PyTorch trace computes: fd,
+knot_kkt and knot_merit to rtol 1e-10 on random inputs; fd's parts,
+composed as csrc/rk4.cu's crba variant composes them (fd_crba, fd_bias,
+fd_solve), compute fd; and indy7's staged functions (knot_dyn, knot_dual,
+knot_ab, knot_defect, knot_cost; iiwa14's header has none), composed as
+csrc/kkt.cu composes them, compute knot_kkt's outputs for every split of
+the tangent directions. Each plant's shim instantiates only what its tests
+call; the two compile at once, at -O0: the test runs each function a few
+times, and g++ takes a quarter of -O1's time over 50k lines of
+straight-line code.
 """
 
 import ctypes
@@ -30,33 +33,39 @@ _KKT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 2
                  + [ctypes.c_void_p] * 8)
 
 M = 7  # random work items
-NQ, NX = 6, 12
+ROBOTS = codegen.ROBOTS
+NQS = {"indy7": 6, "iiwa14": 7}
 
+# fd, knot_kkt, knot_merit and the crba variant's composition of fd
 _SHIM = r"""
-#include "generated/indy7.cuh"
+#include "generated/ROBOT.cuh"
 typedef double T;
+namespace R = gato::ROBOT;
 extern "C" {
 void h_fd(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
-  gato::indy7::fd<T>(q, qd, u, fe, qdd);
+  R::fd<T>(q, qd, u, fe, qdd);
 }
 void h_kkt(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
            const T* fe, T dt, T w_track, const T* w, T* A, T* B, T* c, T* Q,
            T* qv, T* Rd, T* rv) {
-  gato::indy7::knot_kkt<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, A, B, c,
-                               Q, qv, Rd, rv);
+  R::knot_kkt<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, A, B, c, Q, qv, Rd, rv);
 }
 void h_merit(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
              const T* fe, T dt, T w_track, const T* w, T* out) {
-  gato::indy7::knot_merit<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, out);
+  R::knot_merit<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, out);
 }
 // csrc/rk4.cu's crba variant on one thread: CRBA, the bias, the solve
 void h_fd_crba(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
-  T M[36], bias[6];
-  gato::indy7::fd_crba<T, T*>(q, M);
-  gato::indy7::fd_bias<T, T*>(q, qd, fe, bias);
-  gato::indy7::fd_solve<T, T*>(M, u, bias, qdd);
+  T M[R::NQ * R::NQ], bias[R::NQ];
+  R::fd_crba<T, T*>(q, M);
+  R::fd_bias<T, T*>(q, qd, fe, bias);
+  R::fd_solve<T, T*>(M, u, bias, qdd);
 }
 }
+"""
+
+# indy7's staged KKT
+_STAGED_SHIM = r"""
 namespace gato { namespace indy7 {
 // csrc/kkt.cu's stages on one thread: the primal, every part's dual columns
 // and A/B columns, the defect, the cost
@@ -96,33 +105,39 @@ void h_staged(int G, const T* q, const T* qd, const T* u, const T* xn,
 
 
 def test_committed_header_is_generated_output():
-    with open(codegen.header_path("indy7")) as f:
-        assert f.read() == codegen.generate("indy7")
+    for robot in ROBOTS:
+        with open(codegen.header_path(robot)) as f:
+            assert f.read() == codegen.generate(robot), robot
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_libs(tmp_path_factory):
+    """{robot: the shim's library}, the plants' shims compiled at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
     d = tmp_path_factory.mktemp("codegen")
-    src = d / "host.cpp"
-    src.write_text(_SHIM)
-    lib = d / "libhost.so"
     csrc = os.path.join(os.path.dirname(codegen.GENERATED_DIR))
-    subprocess.run([gxx, "-O0", "-std=c++17", "-shared", "-fPIC", "-I", csrc,
-                    "-o", str(lib), str(src)], check=True, timeout=600)
-    return ctypes.CDLL(str(lib))
+    procs = {}
+    for robot in ROBOTS:
+        src, lib = d / f"{robot}.cpp", d / f"lib{robot}.so"
+        src.write_text(_SHIM.replace("ROBOT", robot)
+                       + (_STAGED_SHIM if codegen.KKT_SPLITS[robot] else ""))
+        procs[robot] = (subprocess.Popen([gxx, "-O0", "-std=c++17", "-shared", "-fPIC",
+                                          "-I", csrc, "-o", str(lib), str(src)]), lib)
+    for proc, _ in procs.values():
+        assert proc.wait(timeout=600) == 0
+    return {robot: ctypes.CDLL(str(lib)) for robot, (_, lib) in procs.items()}
 
 
 def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _inputs(seed):
+def _inputs(seed, nq=6):
     rng = np.random.default_rng(seed)
-    return dict(q=rng.uniform(-1.5, 1.5, (M, NQ)), qd=rng.uniform(-1, 1, (M, NQ)),
-                u=rng.uniform(-20, 20, (M, NQ)), xn=rng.uniform(-1, 1, (M, NX)),
+    return dict(q=rng.uniform(-1.5, 1.5, (M, nq)), qd=rng.uniform(-1, 1, (M, nq)),
+                u=rng.uniform(-20, 20, (M, nq)), xn=rng.uniform(-1, 1, (M, 2 * nq)),
                 r3=rng.uniform(-0.5, 0.8, (M, 3)), fe=rng.uniform(-5, 5, (M, 6)))
 
 
@@ -135,9 +150,15 @@ def _cols(a):
     return [torch.tensor(a[:, i]) for i in range(a.shape[1])]
 
 
-def test_generated_fd_matches_trace(host_lib):
-    x = _inputs(1)
-    cd = _get_cd(load_robot("indy7", torch.float64, device="cpu").key)
+def test_generated_fd_matches_trace(host_libs):
+    for robot in ROBOTS:
+        _fd_matches_trace(host_libs[robot], robot)
+
+
+def _fd_matches_trace(host_lib, robot):
+    NQ = NQS[robot]
+    x = _inputs(1, NQ)
+    cd = _get_cd(load_robot(robot, torch.float64, device="cpu").key)
     q = _cols(x["q"])
     ref = cd.fd([ms.cos(v) for v in q], [ms.sin(v) for v in q], _cols(x["qd"]),
                 _cols(x["u"]), f_ext=_cols(x["fe"]))
@@ -153,9 +174,16 @@ def test_generated_fd_matches_trace(host_lib):
         np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-10)
 
 
-def test_generated_knot_kkt_matches_trace(host_lib):
-    x = _inputs(2)
-    model = load_robot("indy7", torch.float64, device="cpu")
+def test_generated_knot_kkt_matches_trace(host_libs):
+    for robot in ROBOTS:
+        _knot_kkt_matches_trace(host_libs[robot], robot)
+
+
+def _knot_kkt_matches_trace(host_lib, robot):
+    NQ = NQS[robot]
+    NX = 2 * NQ
+    x = _inputs(2, NQ)
+    model = load_robot(robot, torch.float64, device="cpu")
     cd = _get_cd(model.key)
     like = torch.tensor(x["q"][:, 0])
     A, Bm, c, Q, qv, Rd, rv = kkt_knot_channels_structured(
@@ -168,8 +196,7 @@ def test_generated_knot_kkt_matches_trace(host_lib):
     fn.argtypes = _KKT_ARGTYPES
     w = np.array(WEIGHTS.weights())
     for m in range(M):
-        outs = [np.zeros((NX, NX)), np.zeros((NX, NQ)), np.zeros(NX),
-                np.zeros((NX, NX)), np.zeros(NX), np.zeros(NQ), np.zeros(NQ)]
+        outs = _kkt_outputs(NQ)
         fn(_ptr(x["q"][m].copy()), _ptr(x["qd"][m].copy()),
            _ptr(x["u"][m].copy()), _ptr(x["xn"][m].copy()),
            _ptr(x["r3"][m].copy()), _ptr(x["fe"][m].copy()), DT, W_TRACK,
@@ -178,9 +205,14 @@ def test_generated_knot_kkt_matches_trace(host_lib):
             np.testing.assert_allclose(o, r[m].numpy(), rtol=1e-10, atol=1e-12)
 
 
-def test_generated_knot_merit_matches_trace(host_lib):
-    x = _inputs(3)
-    model = load_robot("indy7", torch.float64, device="cpu")
+def test_generated_knot_merit_matches_trace(host_libs):
+    for robot in ROBOTS:
+        _knot_merit_matches_trace(host_libs[robot], robot)
+
+
+def _knot_merit_matches_trace(host_lib, robot):
+    x = _inputs(3, NQS[robot])
+    model = load_robot(robot, torch.float64, device="cpu")
     cd = _get_cd(model.key)
     ref = _knot_parts(cd, model.key, WEIGHTS, _cols(x["q"]), _cols(x["qd"]),
                       _cols(x["u"]), _cols(x["xn"]), _cols(x["r3"]),
@@ -200,18 +232,21 @@ def test_generated_knot_merit_matches_trace(host_lib):
     np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-12)
 
 
-def _kkt_outputs():
+def _kkt_outputs(NQ=6):
+    NX = 2 * NQ
     return [np.zeros((NX, NX)), np.zeros((NX, NQ)), np.zeros(NX),
             np.zeros((NX, NX)), np.zeros(NX), np.zeros(NQ), np.zeros(NQ)]
 
 
-@pytest.mark.parametrize("groups", codegen.KKT_SPLITS)
-def test_staged_knot_kkt_matches_knot_kkt(host_lib, groups):
+@pytest.mark.parametrize("groups", codegen.KKT_SPLITS["indy7"])
+def test_staged_knot_kkt_matches_knot_kkt(host_libs, groups):
     """knot_dyn, then knot_dual and knot_ab of every part of the split into
     `groups` parts, knot_defect and knot_cost, composed as csrc/kkt.cu
     composes them, give knot_kkt's outputs to rtol 1e-10 on random inputs;
     the header's split (KKT_DIRS_G<groups>) holds each tangent direction in
     exactly one part."""
+    NQ, NX = 6, 12
+    host_lib = host_libs["indy7"]
     dirs = []
     split = host_lib.h_split
     split.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -25,7 +25,7 @@ import torch
 from gato_tpu_torch.api import BSQP, MPC_GATO, add_pendulum
 from gato_tpu_torch.api.common import _rk4_algorithms, figure8, rk4_step
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
-from gato_tpu_torch.api.config import INDY7_START_CONFIGS
+from gato_tpu_torch.api.config import IIWA14_START_CONFIGS, INDY7_START_CONFIGS
 from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch._build import load_library
 from gato_tpu_torch.ops.cuda_iter import (SMEM_LIMIT, smem_bytes,
@@ -52,6 +52,10 @@ from gato_tpu_torch.solver.bsqp import solve_batched
 from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 
 pytestmark = pytest.mark.cuda
+
+# each plant's start and fig-8 (bench.py --plant)
+START = dict(indy7=INDY7_START_CONFIGS["ready"], iiwa14=IIWA14_START_CONFIGS["bent"])
+FIG8_SHAPE = dict(indy7={}, iiwa14=dict(A_x=0.25, A_z=0.25, offset=(0.393, -0.393, 0.21)))
 
 
 @pytest.fixture
@@ -104,15 +108,16 @@ def _rand(rng, lo, hi, shape, dev):
                         device=dev)
 
 
+@pytest.mark.parametrize("robot", ("indy7", "iiwa14"))
 @pytest.mark.parametrize("variant", RK4_VARIANTS)
 @pytest.mark.parametrize("B", (1, 512))
-def test_rk4_kernel_matches_plain(dev, B, variant):
+def test_rk4_kernel_matches_plain(dev, B, variant, robot):
     """Both rk4 variants (a thread a plant, the default; a CTA of two warps
-    a plant) at the plant's B = 1 and at B = 512, with and without a
-    wrench."""
-    m = load_robot("indy7", torch.float32, dev)
+    a plant) for both plants it is built for, at the plant's B = 1 and at
+    B = 512, with and without a wrench."""
+    m = load_robot(robot, torch.float32, dev)
     rng = np.random.default_rng(5)
-    x, u, fe = (_rand(rng, -1, 1, (B, 12), dev), _rand(rng, -5, 5, (B, 6), dev),
+    x, u, fe = (_rand(rng, -1, 1, (B, m.nx), dev), _rand(rng, -5, 5, (B, m.nu), dev),
                 _rand(rng, -5, 5, (B, 6), dev))
     for f in (None, fe):
         before = rk4_step_batched.launches
@@ -128,34 +133,41 @@ def test_rk4_kernel_matches_plain(dev, B, variant):
 # up to N = 64); and the one-thread phase A forced in the shared layout
 HORIZONS = ((8, None), (33, None), (64, None), (65, None), (128, None),
             (8, "one"), (33, "one"), (64, "one"))
+# bsqp_iter for both plants: iiwa14's phase A is the one-thread one at
+# every N, its shared layout G = 2 up to N = 64
+BSQP_CASES = ([("indy7",) + h for h in HORIZONS]
+              + [("iiwa14", n, None) for n in (8, 33, 64, 65, 128)])
 
 
-@pytest.mark.parametrize("N,phase_a", HORIZONS)
-def test_bsqp_iter_kernel_matches_reference(dev, N, phase_a):
-    """One SQP iteration on a warm fig-8 steady state (indy7, B=64,
-    DEFAULT_SOLVER_PARAMS, 6 warm-up cycles on the kernel route), in the
-    variant that N takes (ops/cuda_iter.py::iteration_variant) with the
-    phase A given: the warm-start merit within 1e-5; steps equal and PCG
-    counts within 3 on 95 % of lanes; X and U normwise within 1e-3 where
-    step and count agree; three chained iterations with equal steps on
-    90 %. Where the float32 plain version itself agrees less with the
+@pytest.mark.parametrize("robot,N,phase_a", BSQP_CASES)
+def test_bsqp_iter_kernel_matches_reference(dev, robot, N, phase_a):
+    """One SQP iteration on a warm fig-8 steady state (B=64,
+    DEFAULT_SOLVER_PARAMS, 6 warm-up cycles on the kernel route; indy7's
+    ready start and fig-8, iiwa14's as bench.py --plant iiwa14 sets them),
+    in the variant that N takes (ops/cuda_iter.py::iteration_variant) with
+    the phase A given: the warm-start merit within 1e-5; steps equal and
+    PCG counts within 3 on 95 % of lanes; X and U normwise within 1e-3
+    where step and count agree; three chained iterations with equal steps
+    on 90 %. Where the float32 plain version itself agrees less with the
     float64 one, these give way (_share, _norm)."""
     B, dt = 64, 0.01
-    m = load_robot("indy7", torch.float32, dev)
+    m = load_robot(robot, torch.float32, dev)
+    nq, nx = m.nq, m.nx
     cp = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
                                          "q_lim_cost")})
     settings = BSQPSettings(N=N, max_sqp_iters=1, max_pcg_iters=P["max_pcg_iters"])
     hp = HyperParams.create(B, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"],
                             device=dev)
-    traj = torch.tensor(figure8(dt).reshape(-1, 6), dtype=torch.float32, device=dev)
+    traj = torch.tensor(figure8(dt, **FIG8_SHAPE[robot]).reshape(-1, 6), dtype=torch.float32,
+                        device=dev)
     rng = np.random.default_rng(0)
     fe = _rand(rng, -5, 5, (B, 6), dev)
     fe[0] = 0.0
-    x0 = torch.tensor(np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)]),
+    x0 = torch.tensor(np.concatenate([START[robot], np.zeros(nq)]),
                       dtype=torch.float32, device=dev)
-    X, x_s = x0.expand(B, N, 12).contiguous(), x0.expand(B, 12).contiguous()
-    U = torch.zeros(B, N - 1, 6, device=dev)
-    lam = torch.zeros(B, N, 12, device=dev)
+    X, x_s = x0.expand(B, N, nx).contiguous(), x0.expand(B, nx).contiguous()
+    U = torch.zeros(B, N - 1, nq, device=dev)
+    lam = torch.zeros(B, N, nx, device=dev)
 
     def ref(i):
         return traj[i:i + N][None].expand(B, N, 6).contiguous()
@@ -163,7 +175,7 @@ def test_bsqp_iter_kernel_matches_reference(dev, N, phase_a):
     for i in range(6):
         X, U, lam, _, _ = solve_batched(m, settings, cp, hp, X, U, lam, x_s,
                                         ref(i), fe, dt)
-        x_s = rk4_step(m, x_s[0], U[0, 0], dt, substeps=10).expand(B, 12).contiguous()
+        x_s = rk4_step(m, x_s[0], U[0, 0], dt, substeps=10).expand(B, nx).contiguous()
         X[:, 0] = x_s
 
     zero = torch.zeros(B, device=dev)
@@ -174,7 +186,7 @@ def test_bsqp_iter_kernel_matches_reference(dev, N, phase_a):
     torch.cuda.synchronize()
     assert sqp_iter_cuda.launches == before + 1
     ro, rs = sqp_iter_reference(m, cp, prob, st0, settings, seeded=False)
-    m64 = load_robot("indy7", torch.float64, dev)
+    m64 = load_robot(robot, torch.float64, dev)
     prob64 = Problem(*(t.double() for t in prob[:5]), dt)
     st64 = IterState(*(t.double() for t in st0))
     o64, s64 = sqp_iter_reference(m64, cp, prob64, st64, settings, seeded=False)
@@ -211,17 +223,19 @@ COST = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
                                        "q_lim_cost")})
 
 
-def _problem(dev, B, N, seed):
-    """Random float32 inputs at the scale of tests/test_torch_ops.py."""
+def _problem(dev, B, N, seed, nq=6):
+    """Random float32 inputs at the scale of tests/test_torch_ops.py for a
+    plant of nq joints."""
     rng = np.random.default_rng(seed)
-    return dict(X=_rand(rng, -0.3, 0.3, (B, N, 12), dev),
-                U=_rand(rng, -5, 5, (B, N - 1, 6), dev),
-                x_s=_rand(rng, -0.3, 0.3, (B, 12), dev),
+    nx = 2 * nq
+    return dict(X=_rand(rng, -0.3, 0.3, (B, N, nx), dev),
+                U=_rand(rng, -5, 5, (B, N - 1, nq), dev),
+                x_s=_rand(rng, -0.3, 0.3, (B, nx), dev),
                 ref=_rand(rng, -0.5, 0.5, (B, N, 6), dev),
                 f_ext=_rand(rng, -3, 3, (B, 6), dev),
-                lam=_rand(rng, -0.1, 0.1, (B, N, 12), dev),
-                dzx=_rand(rng, -0.05, 0.05, (B, N, 12), dev),
-                dzu=_rand(rng, -0.5, 0.5, (B, N - 1, 6), dev),
+                lam=_rand(rng, -0.1, 0.1, (B, N, nx), dev),
+                dzx=_rand(rng, -0.05, 0.05, (B, N, nx), dev),
+                dzu=_rand(rng, -0.5, 0.5, (B, N - 1, nq), dev),
                 rho=_rand(rng, 1e-3, 1e-1, (B,), dev),
                 mu=_rand(rng, 8, 13, (B,), dev))
 
@@ -394,23 +408,24 @@ def test_staged_route_solves_past_128_knots(dev):
     assert (st.ls_step_size == r[11]).double().mean() >= 0.75
 
 
-def test_facade_takes_one_bsqp_iter_launch_per_solve(dev):
+@pytest.mark.parametrize("robot", ("indy7", "iiwa14"))
+def test_facade_takes_one_bsqp_iter_launch_per_solve(dev, robot):
     """The BSQP facade on the card, its default device, at N=32 B=16
-    DEFAULT_SOLVER_PARAMS: one bsqp_iter launch a solve and no other
-    kernel's; its warm start, duals and rho equal bit for bit a direct
-    solve_batched call on the same inputs; the solve's device time by CUDA
-    events in the stats."""
+    DEFAULT_SOLVER_PARAMS, for both plants: one bsqp_iter launch a solve
+    and no other kernel's; its warm start, duals and rho equal bit for bit
+    a direct solve_batched call on the same inputs; the solve's device time
+    by CUDA events in the stats."""
     B, N = 16, 32
-    p = _problem(dev, B, N, 23)
-    fac = BSQP(plant_type="indy7", batch_size=B, N=N, dt=0.01, **{k: P[k] for k in (
+    fac = BSQP(plant_type=robot, batch_size=B, N=N, dt=0.01, **{k: P[k] for k in (
         "max_sqp_iters", "max_pcg_iters", "pcg_tol", "mu", "q_cost", "qd_cost", "u_cost",
         "N_cost", "q_lim_cost", "rho")})
     assert fac.device.type == "cuda"
+    p = _problem(dev, B, N, 23, fac.model.nq)
     fac.set_f_ext_B(p["f_ext"])
     fac.XU_B, fac.lam = fac._flatten(p["X"], p["U"]), p["lam"].clone()
     xcur, ref = p["x_s"].cpu().numpy(), p["ref"].cpu().numpy()
     XU_in = fac.XU_B.copy()
-    XU_in[:, :12] = xcur
+    XU_in[:, :fac.model.nx] = xcur
     hp0, lam0 = fac.hp, fac.lam
     wrappers = (setup_kkt_batched_cuda, pcg_solve_batched_cuda, merit_alphas_batched_cuda,
                 sqp_iter_core_cuda, rk4_step_batched, sqp_iter_cuda)
@@ -429,19 +444,21 @@ def test_facade_takes_one_bsqp_iter_launch_per_solve(dev):
 
 
 def test_rk4_step_routes_on_card(dev):
-    """api.common.rk4_step on the card: indy7 without a world wrench
-    launches the rk4 kernel once and equals rk4_step_batched bit for bit; a
-    world wrench, or the pendulum plant (no generated CUDA), launches no
-    kernel and takes the rigid-body algorithms, within rtol 1e-4 of the
-    same algorithms in float64 on the CPU (float32 forward dynamics)."""
-    m = load_robot("indy7", torch.float32, dev)
+    """api.common.rk4_step on the card: indy7 or iiwa14 without a world
+    wrench launches the rk4 kernel once and equals rk4_step_batched bit for
+    bit; a world wrench, or the pendulum plant (no generated CUDA),
+    launches no kernel and takes the rigid-body algorithms, within rtol
+    1e-4 of the same algorithms in float64 on the CPU (float32 forward
+    dynamics)."""
     rng = np.random.default_rng(29)
-    x, u = _rand(rng, -1, 1, (12,), dev), _rand(rng, -5, 5, (6,), dev)
-    before = rk4_step_batched.launches
-    out = rk4_step(m, x, u, 0.01, substeps=2)
-    torch.cuda.synchronize()
-    assert rk4_step_batched.launches == before + 1
-    assert torch.equal(out, rk4_step_batched(m, x[None], u[None], 0.01, substeps=2)[0])
+    for robot in ("iiwa14", "indy7"):
+        m = load_robot(robot, torch.float32, dev)
+        x, u = _rand(rng, -1, 1, (m.nx,), dev), _rand(rng, -5, 5, (m.nu,), dev)
+        before = rk4_step_batched.launches
+        out = rk4_step(m, x, u, 0.01, substeps=2)
+        torch.cuda.synchronize()
+        assert rk4_step_batched.launches == before + 1
+        assert torch.equal(out, rk4_step_batched(m, x[None], u[None], 0.01, substeps=2)[0])
     w = torch.tensor([0.0, 0.0, -60.0, 1.0, 0.0, 0.0], device=dev)
     m64 = load_robot("indy7", torch.float64, "cpu")
     pend = add_pendulum(m)
@@ -476,22 +493,41 @@ def test_mpc_graphed_plant_step_equals_eager(dev):
     np.testing.assert_array_equal(runs[0], runs[1])
 
 
-@pytest.mark.parametrize("estimator", [None, "sphere", "observer"])
+@pytest.mark.parametrize("estimator", [None, "sphere", "observer", "iiwa14", "iiwa14 goals"])
 def test_rollout_graph_replay_equals_eager(dev, estimator):
     """The rollouts' cycles replayed from their CUDA graph against the same
-    cycles run eagerly, bit for bit (indy7, N=8, B=8, 12 cycles): the fig-8
+    cycles run eagerly, bit for bit (N=8, B=8, 12 cycles): the fig-8
     rollout (one bsqp_iter and one rk4 launch in the captured cycle) and the
-    force-adaptive rollout in both modes (rk4 with a wrench)."""
+    force-adaptive rollout in both modes (rk4 with a wrench), on indy7; the
+    fig-8 rollout with iiwa14 as solver and plant ("iiwa14"), and
+    examples/pickplace.py's device loop ("iiwa14 goals":
+    gato_tpu_torch.examples.pickplace_device, iiwa14 + 15 kg pendulum
+    plant, five bsqp_iter launches a captured cycle and no rk4)."""
     from gato_tpu_torch.api import rollout as R
 
-    model = load_robot("indy7", torch.float32, dev)
+    if estimator == "iiwa14 goals":
+        from gato_tpu_torch.examples import pickplace_device as pp
+
+        runs = [pp.run(8, N=8, n_steps=12, device=dev, graph=graph)[1]
+                for graph in (True, False)]
+        torch.cuda.synchronize()
+        assert R.last_capture["launches"] == {"bsqp_iter": 5, "rk4": 0}
+        for g, e in zip(*runs):
+            assert torch.isfinite(g.float()).all() and torch.equal(g, e)
+        return
+    robot = "iiwa14" if estimator == "iiwa14" else "indy7"
+    if estimator == "iiwa14":
+        estimator = None
+
+    model = load_robot(robot, torch.float32, dev)
     n, b, steps = 8, 8, 12
     settings = BSQPSettings(N=n, max_sqp_iters=1, max_pcg_iters=50)
     cp = CostParams(q_cost=2.0, qd_cost=1e-2, u_cost=2e-6, N_cost=50.0, q_lim_cost=0.01)
     hp = HyperParams.create(b, rho=0.01, mu=10.0, pcg_tol=1e-4, device=dev)
-    x0 = torch.tensor(np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)]),
+    x0 = torch.tensor(np.concatenate([START[robot], np.zeros(model.nq)]),
                       dtype=torch.float32, device=dev)
-    traj = torch.tensor(figure8(0.01).reshape(-1, 6), dtype=torch.float32, device=dev)
+    traj = torch.tensor(figure8(0.01, **FIG8_SHAPE[robot]).reshape(-1, 6),
+                        dtype=torch.float32, device=dev)
     refs = torch.stack([traj[k:k + n] for k in range(steps)])
     draws = torch.rand(steps, 3, generator=torch.Generator().manual_seed(0)).to(dev)
     f_ext = torch.rand(b, 6, generator=torch.Generator().manual_seed(1)).to(dev) * 10 - 5

@@ -21,7 +21,7 @@ from gato_tpu.dynamics.algorithms import fd as jax_fd
 from gato_tpu.ops.merit_fast import _get_cd as jax_get_cd
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.ops.merit_fast import _get_cd
-from torch_port_helpers import cols, models
+from torch_port_helpers import cols, jit_per_sample, models
 
 B = 5
 
@@ -78,7 +78,7 @@ def test_fd_matches_spatial_algebra_fd(robot, atol):
     jm, tm = models(robot)
     tcd = _get_cd(tm.key)
     q, qd, u, fe, _ = _inputs(jm.nq, seed=12)
-    ref = jax.jit(jax.vmap(lambda a, b, c, f: jax_fd(jm, a, b, c, f_ext=f)))(
+    ref = jit_per_sample(lambda a, b, c, f: jax_fd(jm, a, b, c, f_ext=f))(
         jnp.asarray(q), jnp.asarray(qd), jnp.asarray(u), jnp.asarray(fe))
     _, tq = cols(q)
     out = tcd.fd([ms.cos(x) for x in tq], [ms.sin(x) for x in tq],
@@ -115,7 +115,7 @@ def test_port_never_imports_jax():
             "for name in ('dynamics.spatial', 'dynamics.algorithms', 'native', "
             "'ops.integrators', 'ops.merit', 'ops.btd_solve', 'api.interface', "
             "'api.mpc', 'api.force_estimator', 'api.force_estimator_device', "
-            "'api.rollout', 'api.experiment_runner'):\n"
+            "'api.rollout', 'api.experiment_runner', 'examples.pickplace_device'):\n"
             "    assert 'gato_tpu_torch.' + name in names, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gato_tpu' or m.startswith('gato_tpu.')]\n"

@@ -26,7 +26,8 @@ from gato_tpu.ops import merit as jmerit
 from gato_tpu.solver.bsqp import sim_forward_batched as jax_sim_forward_batched
 from gato_tpu_torch.ops import btd_solve, cost, integrators, kkt, merit
 from gato_tpu_torch.solver.bsqp import sim_forward_batched
-from torch_port_helpers import DEFAULT_COST, costs, jax_in_pieces, models, t64
+from torch_port_helpers import (DEFAULT_COST, costs, jax_in_pieces, jit_per_sample, models,
+                                t64)
 
 B, N, DT = 4, 8, 0.01
 RTOL = ATOL = 1e-9
@@ -65,7 +66,7 @@ def jax_integrators(setup):
 
     with pytest.MonkeyPatch.context() as mp:
         jax_in_pieces(mp, jint)
-        return jax.block_until_ready(jax.jit(jax.vmap(one))(*map(jnp.asarray, (
+        return jax.block_until_ready(jit_per_sample(one)(*map(jnp.asarray, (
             a["X"][:, 0], a["U"][:, 0], a["X"][:, 1], a["f_ext"]))))
 
 
@@ -95,7 +96,7 @@ def test_knot_cost_and_kkt_setup_match_jax(setup, monkeypatch):
                 jcost.knot_cost_grad_hess(jm, jcp, X[-1], None, ref[-1], terminal=True)[:2],
                 jkkt.setup_kkt(jm, jcp, X, U, x_s, ref, fe, DT))
 
-    ref = jax.jit(jax.vmap(one))(ja["X"], ja["U"], ja["x_s"], ja["ref"], ja["f_ext"])
+    ref = jit_per_sample(one)(ja["X"], ja["U"], ja["x_s"], ja["ref"], ja["f_ext"])
     X, U, x_s, r6, fe = (t64(a[k]) for k in ("X", "U", "x_s", "ref", "f_ext"))
     k = kkt.setup_kkt(tm, tcp, X, U, x_s, r6, fe, DT)
     out = (cost.knot_cost(tm, tcp, X[:, 0], U[:, 0], r6[:, 0], terminal=False),
@@ -117,8 +118,8 @@ def test_merit_and_sim_forward_match_jax(setup, monkeypatch):
     jal = jmerit.default_alphas(8, dtype=jnp.float64)
     tal = merit.default_alphas(8, dtype=torch.float64)
     np.testing.assert_array_equal(tal.numpy(), np.asarray(jal))
-    ref = jax.jit(jax.vmap(lambda X, U, dX, dU, xs, r, fe, mu: jmerit.merit_alphas(
-        jm, jcp, X, U, dX, dU, xs, r, fe, mu, DT, jal)))(
+    ref = jit_per_sample(lambda X, U, dX, dU, xs, r, fe, mu: jmerit.merit_alphas(
+        jm, jcp, X, U, dX, dU, xs, r, fe, mu, DT, jal))(
         ja["X"], ja["U"], ja["dZX"], ja["dZU"], ja["x_s"], ja["ref"], ja["f_ext"], ja["mu"])
     out = merit.merit_alphas(tm, tcp, *(t64(a[k]) for k in (
         "X", "U", "dZX", "dZU", "x_s", "ref", "f_ext", "mu")), DT, tal)

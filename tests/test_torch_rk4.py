@@ -1,4 +1,5 @@
-"""The port's RK4 plant step against the JAX package (float64, CPU). The
+"""The port's RK4 plant step against the JAX package (float64, CPU), and
+which plants each kernel is built for (ops/cuda_sim.py::CUDA_ROBOTS). The
 CUDA kernel csrc/rk4.cu is held to its plain version in
 tests/test_torch_cuda.py, on the card.
 
@@ -18,9 +19,13 @@ from gato_tpu.api.common import rk4_step as jax_rk4_step
 from gato_tpu.ops.merit_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_sim import rk4_channels as jax_rk4_channels
 from gato_tpu_torch.api.common import rk4_step
-from gato_tpu_torch.ops.cuda_sim import require_cuda_robot, rk4_step_batched
+from gato_tpu_torch.api.mpc import add_pendulum
+from gato_tpu_torch.ops.cuda_iter import sqp_iter_core_cuda
+from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda
+from gato_tpu_torch.ops.cuda_sim import (CUDA_ROBOTS, require_cuda_robot,
+                                         rk4_step_batched)
 from gato_tpu_torch.robots.model import load_robot
-from torch_port_helpers import jax_in_pieces, models, t64
+from torch_port_helpers import jax_in_pieces, jit_per_sample, models, t64
 
 B, DT, SUBSTEPS = 5, 0.01, 2
 
@@ -52,13 +57,13 @@ def test_rk4_matches_jax_rk4_channels(robot, with_fe):
 def test_rk4_step_matches_jax_rk4_step(monkeypatch):
     """api.common.rk4_step (one state) against gato_tpu.api.common.rk4_step,
     the spatial-algebra RK4, for each of the B states, its forward dynamics
-    compiled once (torch_port_helpers.jax_in_pieces). iiwa14: indy7's
+    compiled once (torch_port_helpers.jax_in_pieces). iiwa14, whose step
+    on the CPU is the rk4 kernel's plain version (the channel trace): indy7's
     constant snap alone moves a step by ~3e-9 relative."""
     jax_in_pieces(monkeypatch)
     jm, tm = models("iiwa14")
     x, u, _ = _inputs(jm.nq, seed=4)
-    ref = jax.jit(jax.vmap(lambda a, b: jax_rk4_step(jm, a, b, DT,
-                                                     substeps=SUBSTEPS)))(
+    ref = jit_per_sample(lambda a, b: jax_rk4_step(jm, a, b, DT, substeps=SUBSTEPS))(
         jnp.asarray(x), jnp.asarray(u))
     out = np.stack([rk4_step(tm, t64(x[i]), t64(u[i]), DT,
                              substeps=SUBSTEPS).numpy() for i in range(B)])
@@ -70,14 +75,55 @@ def test_rk4_wrapper_takes_the_plain_path_only_on_cpu():
     version: it is checked for the kernel and refused (here a 'meta'
     tensor), through the wrapper and through api.common.rk4_step, which
     routes a plant with generated CUDA dynamics and no world wrench to the
-    kernel; a plant without generated CUDA dynamics is refused by the
-    kernel wrapper."""
-    m = load_robot("indy7", torch.float32, device="cpu")
-    x = torch.empty(2, 12, device="meta")
-    u = torch.empty(2, 6, device="meta")
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        rk4_step_batched(m, x, u, DT)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        rk4_step(m, x[0], u[0], DT)
-    with pytest.raises(NotImplementedError, match="iiwa14"):
-        require_cuda_robot(load_robot("iiwa14", torch.float32, device="cpu"))
+    kernel (indy7 and iiwa14); a plant without generated CUDA dynamics
+    (the pendulum-augmented iiwa14) is refused by the kernel wrapper."""
+    for robot in ("indy7", "iiwa14"):
+        m = load_robot(robot, torch.float32, device="cpu")
+        x = torch.empty(2, m.nx, device="meta")
+        u = torch.empty(2, m.nu, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            rk4_step_batched(m, x, u, DT)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            rk4_step(m, x[0], u[0], DT)
+    pend = add_pendulum(m, mass=15.0, length=0.3)
+    with pytest.raises(NotImplementedError, match="iiwa14\\+pendulum"):
+        require_cuda_robot(pend, "rk4")
+
+
+def test_each_kernel_names_its_plants():
+    """bsqp_iter and rk4 are built for indy7 and iiwa14, iter, kkt, merit
+    and pcg for indy7 alone: for iiwa14 those four raise
+    NotImplementedError naming the kernel and the ROADMAP item, through
+    require_cuda_robot and before any launch through the wrappers (the
+    iter kernel's on 'meta' tensors; pcg's, which sees no model, by the
+    state size), and so does every kernel for the pendulum-augmented
+    plant."""
+    assert CUDA_ROBOTS == {"rk4": ("indy7", "iiwa14"), "bsqp_iter": ("indy7", "iiwa14"),
+                           "iter": ("indy7",), "pcg": ("indy7",), "merit": ("indy7",),
+                           "kkt": ("indy7",)}
+    iiwa = load_robot("iiwa14", torch.float32, device="cpu")
+    pend = add_pendulum(iiwa, mass=15.0, length=0.3)
+    for kernel in CUDA_ROBOTS:
+        require_cuda_robot(load_robot("indy7", torch.float32, device="cpu"), kernel)
+        with pytest.raises(NotImplementedError, match=f"{kernel} kernel.*ROADMAP Queue 1 item 2"):
+            require_cuda_robot(pend, kernel)
+        if kernel in ("bsqp_iter", "rk4"):
+            require_cuda_robot(iiwa, kernel)
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"{kernel} kernel is not built for 'iiwa14'.*"
+                                     "ROADMAP Queue 1 item 2"):
+                require_cuda_robot(iiwa, kernel)
+    B, N = 2, 4
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    with pytest.raises(NotImplementedError, match="iter kernel"):
+        sqp_iter_core_cuda(iiwa, None, meta(B, N, 14), meta(B, N - 1, 7), meta(B, 14),
+                           meta(B, N, 6), meta(B, 6), meta(B, N, 14), meta(B), meta(B),
+                           meta(B, dtype=torch.bool), DT, 10)
+    with pytest.raises(NotImplementedError, match="pcg kernel.*nx=14.*ROADMAP Queue 1 item 2"):
+        pcg_solve_batched_cuda(meta(B, N, 14, 14), meta(B, N - 1, 14, 14), meta(B, N, 14, 14),
+                               meta(B, N - 1, 14, 14), meta(B, N, 14), meta(B, N, 14), meta(B),
+                               10, meta(B, dtype=torch.bool))

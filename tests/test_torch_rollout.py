@@ -1,12 +1,17 @@
 """The port's on-device rollouts (gato_tpu_torch.api.rollout) against the
 JAX package's (gato_tpu.api.rollout) on the CPU, float64, inputs made once
-with numpy from a seed: closed_loop_rollout (indy7, N=4, B=4, 3 cycles,
-max_sqp_iters=2, per-lane wrench hypotheses) and closed_loop_rollout_goals
-(2 goals, 4 cycles, the sphere estimator over the batch), with the JAX
-key's own uniform draws handed to the port. Every cycle's state and EE
-position agree within RTOL of the trajectory's largest value; the chosen
-lanes, goal indices and outcomes are identical. The capturable chained
-solve (device_exit=True) equals the host-exit one bit for bit.
+with numpy from a seed: closed_loop_rollout (N=4, B=4, 3 cycles,
+max_sqp_iters=2, per-lane wrench hypotheses; indy7, and iiwa14 as solver
+and plant, whose plant step is the rk4 kernel's plain version) and
+closed_loop_rollout_goals (2 goals, 4 cycles, the sphere estimator over
+the batch; indy7 as solver and plant at control_dt 0.01, and
+examples/pickplace.py's device loop: iiwa14 as solver, iiwa14 + 15 kg
+pendulum as plant, control_dt 2 ms, its costs, RK4-substepped hypothesis
+scoring), with the JAX key's own uniform draws handed to the port. Every
+cycle's state and EE position agree within RTOL of the trajectory's
+largest value; the chosen lanes, goal indices and outcomes are identical.
+The capturable chained solve (device_exit=True) equals the host-exit one
+bit for bit.
 
 RTOL is 1e-6, not 1e-8: the JAX package's own goals rollout and the same
 warm-up solve and plant step jitted apart from it already differ by more
@@ -31,11 +36,13 @@ import pytest
 import torch
 
 import gato_tpu.api.force_estimator_device as jfed
+from gato_tpu.api.mpc import add_pendulum as jax_add_pendulum
 from gato_tpu.api.rollout import closed_loop_rollout as jax_rollout
 from gato_tpu.api.rollout import closed_loop_rollout_goals as jax_rollout_goals
 from gato_tpu.solver.types import BSQPSettings as JSettings
 from gato_tpu.solver.types import HyperParams as JHyperParams
 from gato_tpu_torch.api import rollout as R
+from gato_tpu_torch.api.mpc import add_pendulum
 from gato_tpu_torch.interop import hyper_from_numpy
 from gato_tpu_torch.ops.cuda_solve import sqp_iter_reference, sqp_solve_chained
 from gato_tpu_torch.solver.types import BSQPSettings
@@ -43,17 +50,24 @@ from torch_port_helpers import DEFAULT_COST, costs, jax_in_pieces, models, t64
 
 N, B, DT = 4, 4, 0.01
 RTOL = 1e-6
-Q0 = np.array([-1.0966, -0.099, 0.8313, -0.109, 0.497, 0.015])
-X0 = np.concatenate([Q0, np.zeros(6)])
-EE0 = np.array([-0.3226, 0.2416, 1.0508])  # near Q0's EE position
+# each plant's start and a point near its start's EE: indy7's ready pose,
+# iiwa14's elbow-bent one (examples/mixed_fleet.py:130)
+Q0 = dict(indy7=np.array([-1.0966, -0.099, 0.8313, -0.109, 0.497, 0.015]),
+          iiwa14=np.array([0.0, 0.7, 0.0, -1.6, 0.0, 1.0, 0.0]))
+EE0 = dict(indy7=np.array([-0.3226, 0.2416, 1.0508]), iiwa14=np.array([0.556, 0.0, 0.335]))
+X0 = np.concatenate([Q0["indy7"], np.zeros(6)])  # indy7 at rest (the estimator tests)
 HP = [np.full(B, 0.01), np.ones(B), np.full(B, 10.0), np.full(B, 1e-4)]
+# examples/pickplace.py's device loop: PICKPLACE_SOLVER_PARAMS' costs and
+# hyperparameters, the 15 kg pendulum (PENDULUM_DEFAULT_PARAMS), 2 ms cycles
+PICKPLACE_COST = dict(q_cost=5.0, qd_cost=1e-2, u_cost=5e-7, N_cost=50.0, q_lim_cost=0.0)
+PICKPLACE_HP = [np.full(B, 1e-3), np.ones(B), np.full(B, 10.0), np.full(B, 1e-6)]
 
 
 @pytest.fixture(scope="module")
 def setup():
-    jm, tm = models("indy7")
+    """{robot: (JAX model, port model)}, and the default costs."""
     jcp, tcp = costs(**DEFAULT_COST)
-    return jm, tm, jcp, tcp
+    return {robot: models(robot) for robot in Q0}, jcp, tcp
 
 
 @pytest.fixture
@@ -88,46 +102,69 @@ def close(got, want, msg):
     assert err <= RTOL * scale, f"{msg}: {err:.3e} against the largest value {scale:.3e}"
 
 
-def test_closed_loop_rollout_matches_jax(setup, pieces):
-    jm, tm, jcp, tcp = setup
+@pytest.mark.parametrize("robot", ["indy7", "iiwa14"])
+def test_closed_loop_rollout_matches_jax(setup, pieces, robot):
+    (jm, tm), jcp, tcp = setup[0][robot], setup[1], setup[2]
+    x0 = np.concatenate([Q0[robot], np.zeros(jm.nq)])
     rng = np.random.default_rng(5)
     f_ext = rng.uniform(-5.0, 5.0, (B, 6))
     f_ext[0] = 0.0
-    goal = EE0 + np.array([0.06, -0.04, 0.05]) + rng.uniform(-0.01, 0.01, 3)
+    goal = EE0[robot] + np.array([0.06, -0.04, 0.05]) + rng.uniform(-0.01, 0.01, 3)
     refs = np.tile(np.concatenate([goal, np.zeros(3)]), (3, N, 1))
     js = JSettings(N=N, max_sqp_iters=2, max_pcg_iters=40)
     xs, ees, us = jax_rollout(jm, jm, js, jcp, JHyperParams(*map(jnp.asarray, HP)),
-                              jnp.asarray(X0), jnp.asarray(refs), jnp.asarray(f_ext),
+                              jnp.asarray(x0), jnp.asarray(refs), jnp.asarray(f_ext),
                               jnp.float64(DT), jnp.float64(DT), sim_substeps=2)
     ts = BSQPSettings(N=N, max_sqp_iters=2, max_pcg_iters=40)
     txs, tees, tus = R.closed_loop_rollout(
-        tm, tm, ts, tcp, hyper_from_numpy(*HP, device="cpu"), t64(X0), t64(refs),
+        tm, tm, ts, tcp, hyper_from_numpy(*HP, device="cpu"), t64(x0), t64(refs),
         t64(f_ext), DT, DT, sim_substeps=2)
     close(txs, xs, "x_sim")
     close(tees, ees, "ee")
     close(tus, us, "u")
 
 
-def test_goals_rollout_matches_jax(setup, pieces, monkeypatch):
-    jm, tm, jcp, tcp = setup
+@pytest.mark.parametrize("plant", ["indy7", "iiwa14+pendulum"])
+def test_goals_rollout_matches_jax(setup, pieces, monkeypatch, plant):
+    """indy7 as solver and plant; or pickplace's loop: iiwa14 as solver and
+    iiwa14 + 15 kg pendulum (swung 0.3 rad) as plant, damping 0.4, 2 ms
+    cycles, its costs, RK4-substepped scoring (score_substeps=2)."""
+    robot = plant.split("+")[0]
+    jm, tm = setup[0][robot]
+    x0 = np.concatenate([Q0[robot], np.zeros(jm.nq)])
     rng = np.random.default_rng(6)
     # goal 0 where the arm rests (reached at once), goal 1 a few cm away
     # (its timeout fires): both outcomes
-    goals = EE0 + np.array([[0.0, 0.0, 0.0], [0.06, -0.04, 0.05]]) + rng.uniform(
+    goals = EE0[robot] + np.array([[0.0, 0.0, 0.0], [0.06, -0.04, 0.05]]) + rng.uniform(
         -0.005, 0.005, (2, 3))
-    n_steps, control_dt = 4, float(np.float32(DT))
+    n_steps = 4
     draws = jax_uniforms(1, n_steps)
     js = JSettings(N=N, max_sqp_iters=2, max_pcg_iters=40)
-    monkeypatch.setattr(jfed, "fe_init", f64_fe_init)
-    want = jax_rollout_goals(jm, jm, js, jcp, JHyperParams(*map(jnp.asarray, HP)),
-                             jnp.asarray(X0), jnp.asarray(goals), jnp.float64(DT),
-                             jnp.float32(control_dt), jax.random.PRNGKey(1),
-                             batch_size=B, n_steps=n_steps, goal_timeout=0.02,
-                             sim_substeps=2)
     ts = BSQPSettings(N=N, max_sqp_iters=2, max_pcg_iters=40)
+    monkeypatch.setattr(jfed, "fe_init", f64_fe_init)
+    if plant == "indy7":
+        jcp, tcp = setup[1], setup[2]
+        hp, jsim, tsim, x_sim0 = HP, jm, tm, x0
+        kw = dict(goal_timeout=0.02, sim_substeps=2)
+        control_dt = float(np.float32(DT))
+    else:
+        jcp, tcp = costs(**PICKPLACE_COST)
+        hp = PICKPLACE_HP
+        jsim, tsim = jax_add_pendulum(jm, mass=15.0, length=0.3), add_pendulum(
+            tm, mass=15.0, length=0.3)
+        x_sim0 = np.zeros(2 * tsim.nq)
+        x_sim0[:jm.nq] = Q0[robot]
+        x_sim0[jm.nq:jm.nq + 3] = [0.3, 0.0, 0.0]
+        # goal 1's timeout fires on the fourth cycle
+        kw = dict(goal_timeout=0.005, sim_substeps=2, pendulum_damping=0.4, score_substeps=2)
+        control_dt = float(np.float32(0.002))
+    want = jax_rollout_goals(jm, jsim, js, jcp, JHyperParams(*map(jnp.asarray, hp)),
+                             jnp.asarray(x_sim0), jnp.asarray(goals), jnp.float64(DT),
+                             jnp.float32(control_dt), jax.random.PRNGKey(1),
+                             batch_size=B, n_steps=n_steps, **kw)
     got = R.closed_loop_rollout_goals(
-        tm, tm, ts, tcp, hyper_from_numpy(*HP, device="cpu"), t64(X0), t64(goals), DT,
-        control_dt, t64(draws), B, n_steps, goal_timeout=0.02, sim_substeps=2)
+        tm, tsim, ts, tcp, hyper_from_numpy(*hp, device="cpu"), t64(x_sim0), t64(goals), DT,
+        control_dt, t64(draws), B, n_steps, **kw)
     names = ("x_sim", "ee", "dist", "goal_idx", "best", "outcomes", "reached_t",
              "smoothed", "radius")
     for name, g, w in zip(names, got, want):

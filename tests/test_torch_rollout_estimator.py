@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import gato_tpu.api.force_estimator_device as jfed
+import gato_tpu.ops.integrators as jint
 from gato_tpu.api.common import figure8 as jax_figure8
 from gato_tpu.api.mpc import MPC_GATO as JMPC_GATO
 from gato_tpu.api.rollout import closed_loop_rollout_estimator as jax_rollout
@@ -32,7 +33,7 @@ from gato_tpu_torch.interop import hyper_from_numpy
 from gato_tpu_torch.solver.types import BSQPSettings
 from test_torch_rollout import (EE0, HP, X0, B, DT, N, close, f64_fe_init,  # noqa: F401
                                 pieces, jax_uniforms)
-from torch_port_helpers import DEFAULT_COST, costs, models, t64
+from torch_port_helpers import DEFAULT_COST, costs, jax_in_pieces, models, t64
 
 STEPS = 3
 TRUE_W = np.array([12.0, -8.0, 5.0, 0.0, 0.0, 0.0])
@@ -44,7 +45,7 @@ def test_estimator_rollout_matches_jax(estimator, pieces, monkeypatch):
     jm, tm = models("indy7")
     jcp, tcp = costs(**DEFAULT_COST)
     rng = np.random.default_rng(8)
-    hold = EE0 + rng.uniform(-0.005, 0.005, 3)
+    hold = EE0["indy7"] + rng.uniform(-0.005, 0.005, 3)
     refs = np.tile(np.concatenate([hold, np.zeros(3)]), (STEPS, N, 1))
     monkeypatch.setattr(jfed, "fe_init", f64_fe_init)
     want = jax_rollout(jm, JSettings(N=N, max_sqp_iters=2, max_pcg_iters=40), jcp,
@@ -76,7 +77,7 @@ def _record(obj, name, to_numpy):
     return seen
 
 
-def test_mpc_observer_matches_jax(pieces):
+def test_mpc_observer_matches_jax(monkeypatch):
     """MPC_GATO(estimator="observer", device="cpu") against the JAX
     package's MPC_GATO(estimator="observer"), both float32, in
     tests/test_api.py's observer configuration (indy7, N=8, B=4, world
@@ -85,11 +86,13 @@ def test_mpc_observer_matches_jax(pieces):
     within OBS_Q_ATOL rad, the last solve's EE-frame lanes within
     OBS_LANE_RTOL of their largest value, and the lanes' layout: lane 0
     the estimate, lane 1 zero, the rest copies of lane 0. The JAX side's
-    rk4_step and solve are compiled in pieces (jax_in_pieces). The two
+    rk4_step and its facade's sim_forward (gato_tpu.ops.integrators) call
+    the forward dynamics compiled in pieces (jax_in_pieces). The two
     float32 solves stop their PCG at the same tolerance (1e-4) by different
     orders of operations; on these inputs the estimates differ by up to
     9e-5 N, the joint positions by 1.2e-4 rad, the lanes by 1.3e-4 of their
     largest."""
+    jax_in_pieces(monkeypatch, jint)
     true_f = np.array([10.0, -6.0, 4.0, 0.0, 0.0, 0.0], np.float32)
     x0 = np.concatenate([INDY7_START_CONFIGS["ready"], np.zeros(6)]).astype(np.float32)
     kw = dict(plant_type="indy7", N=8, dt=0.01, batch_size=4, constant_f_ext=true_f,

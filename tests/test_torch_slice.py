@@ -40,6 +40,10 @@ def test_config_copies_match_jax_package():
         assert getattr(port_config, name) == getattr(jax_config, name), name
     for k, v in jax_config.PENDULUM_DEFAULT_PARAMS.items():
         np.testing.assert_array_equal(port_config.PENDULUM_DEFAULT_PARAMS[k], v)
+    for name in ("PICKPLACE_SOLVER_PARAMS", "PICKPLACE_MPC_DEFAULTS"):
+        assert getattr(port_config, name) == getattr(jax_config, name), name
+    np.testing.assert_array_equal(np.stack(port_config.PICKPLACE_DEFAULT_GOALS),
+                                  np.stack(jax_config.PICKPLACE_DEFAULT_GOALS))
     np.testing.assert_array_equal(figure8(DT), jax_figure8(DT))
 
 

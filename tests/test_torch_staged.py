@@ -10,8 +10,9 @@ against the JAX package, float64 on the CPU, on identical numpy inputs:
   including the terminal knot as the kkt kernel forms it (the per-knot
   trace with the terminal tracking weight);
 - solver/bsqp.py::select_route, and the entry points' default device;
-- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N,
-  and the variants of the staged KKT (ops/cuda_kkt.py, phase A).
+- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N
+  for each plant (indy7, iiwa14), and the variants of the staged KKT
+  (ops/cuda_kkt.py, phase A; indy7 only).
 
 PCG runs to 1e-10 here, so the two Krylov loops stop at the same count and
 their iterates agree to the tolerance-implied level.
@@ -30,7 +31,8 @@ from gato_tpu.ops.pallas_pcg import pcg_channels
 from gato_tpu_torch.dynamics import codegen
 from gato_tpu_torch.interop import model_from_numpy, state_from_numpy
 from gato_tpu_torch.ops import cuda_iter, cuda_kkt
-from gato_tpu_torch.ops.cuda_iter import (MAX_THREADS, SHARED_GROUPS,
+from gato_tpu_torch.ops.cuda_iter import (COMPILED_GROUPS, MAX_THREADS,
+                                          SHARED_GROUPS, SHARED_MAX_N,
                                           SMEM_LIMIT, iteration_variant,
                                           phase_a_default, smem_bytes,
                                           sqp_iter_core_reference,
@@ -45,7 +47,7 @@ from gato_tpu_torch.robots.model import load_robot
 from gato_tpu_torch.solver.bsqp import select_route
 from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 from torch_port_helpers import (DEFAULT_COST, _bcast_chan, _to_chan, costs,
-                                models, t64)
+                                jit_per_sample, models, t64)
 
 B, DT, TOL = 3, 0.01, 1e-10
 
@@ -157,8 +159,8 @@ def test_kkt_assembly_and_terminal_fold_match_setup_kkt(pair):
     jm, tm, jcp, tcp = pair
     N = 9
     p = _problem(N, 7)
-    jk = jax.jit(jax.vmap(lambda X, U, xs, r, fe: jkkt.setup_kkt(
-        jm, jcp, X, U, xs, r, fe, DT)))(*(jnp.asarray(p[k]) for k in (
+    jk = jit_per_sample(lambda X, U, xs, r, fe: jkkt.setup_kkt(
+        jm, jcp, X, U, xs, r, fe, DT))(*(jnp.asarray(p[k]) for k in (
             "X", "U", "x_s", "ref", "f_ext")))
     tk = setup_kkt_batched(tm, tcp, *(t64(p[k]) for k in (
         "X", "U", "x_s", "ref", "f_ext")), DT)
@@ -233,56 +235,82 @@ def test_entry_points_default_to_the_card():
     assert load_robot("indy7", device="cpu").R_tree.device.type == "cpu"
 
 
+# per plant state size nx: the last N where the shared layout fits at
+# G = 1, and the global layout's bytes at N = 32, 64, 128
+SHARED_FITS = {12: (86, ((32, 12_488), (64, 24_776), (128, 49_352))),
+               14: (64, ((32, 14_536), (64, 28_872), (128, 57_544)))}
+
+
 def test_iteration_variant_takes_shared_memory_where_it_fits():
-    """For every N from 2 to 128 the iteration kernels' (layout, G): the
-    four blocks in shared memory with SHARED_GROUPS threads per knot up to
-    N = 64, where smem_bytes fits the 232,448 bytes a block may use (it
-    would up to N = 86) and G W <= 256 threads; the global scratch with
-    G = 1 past N = 64. smem_bytes is csrc/sqp_iter.cuh's formula: today's
-    buffers (N 96 + 50 floats), plus 576 floats a knot and 2 G W
-    partials."""
+    """For every N from 2 to 128 the iteration kernels' (layout, G) for a
+    plant of state size nx (indy7 12, iiwa14 14): the four blocks in shared
+    memory up to N = 64, where smem_bytes fits the 232,448 bytes a block may
+    use (at G = 1 indy7's would up to N = 86; iiwa14's fits no further than
+    64 at any compiled G) and G W <= 256 threads, G = SHARED_GROUPS[nx],
+    one of the compiled G, which divide nx; the global scratch with G = 1
+    past N = 64. smem_bytes is csrc/sqp_iter.cuh's
+    formula: today's buffers (N (7 nx + nx) + 50 floats), plus 4 nx^2
+    floats a knot and 2 G W partials."""
+    for nx, (fits_to, bases) in SHARED_FITS.items():
+        _variant_rule(nx, fits_to, bases)
+
+
+def _variant_rule(nx, fits_to, bases):
     shared = []
     for N in range(2, 129):
-        layout, g = iteration_variant(N)
+        layout, g = iteration_variant(N, nx)
         W = warp_threads(N)
         assert W % 32 == 0 and N <= W < N + 32
-        assert smem_bytes(N, layout, g) <= SMEM_LIMIT and g * W <= MAX_THREADS
-        assert (smem_bytes(N, "shared", 1) <= SMEM_LIMIT) == (N <= 86)
+        assert smem_bytes(N, layout, g, nx) <= SMEM_LIMIT and g * W <= MAX_THREADS
+        assert (smem_bytes(N, "shared", 1, nx) <= SMEM_LIMIT) == (N <= fits_to)
         if layout == "shared":
             shared.append(N)
-            assert g == SHARED_GROUPS
+            assert g == SHARED_GROUPS[nx] and g in COMPILED_GROUPS[nx] and nx % g == 0
         else:
             assert (layout, g) == ("global", 1)
-    assert shared == list(range(2, 65))
-    for N, base in ((32, 12_488), (64, 24_776), (128, 49_352)):
-        assert smem_bytes(N, "global", 1) == base
-        for g in (1, 2, 4):
-            assert smem_bytes(N, "shared", g) == base + 2_304 * N + 8 * g * warp_threads(N)
+    assert shared == list(range(2, SHARED_MAX_N + 1))
+    # the shared layout's last N is the last that a compiled G fits
+    assert all(smem_bytes(SHARED_MAX_N + 1, "shared", g, nx) > SMEM_LIMIT
+               for g in COMPILED_GROUPS[nx]) == (nx == 14)
+    for N, base in bases:
+        assert smem_bytes(N, "global", 1, nx) == base
+        for g in COMPILED_GROUPS[nx]:
+            assert (smem_bytes(N, "shared", g, nx)
+                    == base + 16 * nx * nx * N + 8 * g * warp_threads(N))
 
 
 def test_staged_kkt_variants():
     """The staged KKT's variants: the kkt kernel's G is one of the splits
     that the generated header carries (KKT_DIRS_G<G>), as is the iteration
     kernels' 4; phase A of the iteration kernels is staged exactly where
-    the shared layout has G = 4 groups, one per part of the header's 4-way
-    split (every N up to 64); a variant that is not compiled raises before
-    any launch."""
-    assert cuda_kkt.KKT_GROUPS in codegen.KKT_SPLITS and SHARED_GROUPS in codegen.KKT_SPLITS
+    indy7's shared layout has G = 4 groups, one per part of the header's
+    4-way split (every N up to 64), and never for iiwa14, whose header has
+    no staged KKT; a variant that is not compiled raises before any
+    launch."""
+    splits = codegen.KKT_SPLITS["indy7"]
+    assert cuda_kkt.KKT_GROUPS in splits and SHARED_GROUPS[12] in splits
     assert cuda_kkt.VARIANTS == (("staged", cuda_kkt.KKT_GROUPS), ("one", 1))
     with open(codegen.header_path("indy7")) as f:
         header = f.read()
-    for g in codegen.KKT_SPLITS:
+    for g in splits:
         assert f"constexpr int KKT_DIRS_G{g}[{g}][NX]" in header
+    assert "#define GATO_KKT_STAGES 1" in header
+    with open(codegen.header_path("iiwa14")) as f:
+        header = f.read()
+    assert codegen.KKT_SPLITS["iiwa14"] == ()
+    assert "KKT_DIRS_G" not in header and "GATO_KKT_STAGES" not in header
     assert cuda_kkt._variant_code(("one", 1)) == 0
     assert cuda_kkt._variant_code(("staged", 2)) == 2
     for bad in (("staged", 4), ("staged", 6), ("one", 4), ("global", 1)):
         with pytest.raises(ValueError, match="not compiled"):
             cuda_kkt._variant_code(bad)
     for N in range(2, 129):
-        staged = phase_a_default(*iteration_variant(N)) == "staged"
+        staged = phase_a_default(*iteration_variant(N), 12) == "staged"
         assert staged == (N <= 64)
-    assert cuda_iter.STAGED_A == ("shared", 4) and SHARED_GROUPS == 4
-    assert cuda_iter._phase_a_code("shared", 4, "one") == 0
-    for layout, g in (("shared", 2), ("global", 1)):
+        assert phase_a_default(*iteration_variant(N, 14), 14) == "one"
+    assert cuda_iter.STAGED_A == {12: ("shared", 4)} and SHARED_GROUPS[12] == 4
+    assert cuda_iter._phase_a_code("shared", 4, "one", 12) == 0
+    for layout, g, nx in (("shared", 2, 12), ("global", 1, 12), ("shared", 7, 14),
+                          ("shared", 2, 14)):
         with pytest.raises(ValueError, match="not compiled"):
-            cuda_iter._phase_a_code(layout, g, "staged")
+            cuda_iter._phase_a_code(layout, g, "staged", nx)

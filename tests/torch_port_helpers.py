@@ -10,9 +10,11 @@ the modules a test names) call its solve_batched, fd and sim_step each
 compiled once on its own: inlined, every call site of the generated
 dynamics (fd: tens of thousands of operations) and the solve is traced
 and compiled again in every program, minutes of each test file on the
-CPU. The functions are the JAX package's own; only where they are
-compiled changes (the three rollouts' outputs agree with the inlined
-programs' to 1e-13 of the largest value in float64).
+CPU. Each piece is traced once for its input signature and the same
+trace gives its output shapes and its compiled program (_piece), kept
+while the test file runs. The functions are the JAX package's own; only
+where they are compiled changes (the three rollouts' outputs agree with
+the inlined programs' to 1e-13 of the largest value in float64).
 
 Importing this module sets torch to one intra-op thread: pytest-xdist's
 workers share the machine's cores, and torch's thread pool over the plain
@@ -21,6 +23,8 @@ versions' small batched tensors (a (64, 64, 12) reduction, a batch of
 imports every test module when it collects, so the setting holds in every
 worker.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +67,21 @@ def costs(**weights):
 
 def t64(a):
     return torch.tensor(np.asarray(a), dtype=torch.float64)
+
+
+def jit_per_sample(fn):
+    """fn jitted on one sample and called on each row of its batched
+    arguments in turn, the outputs stacked: the JAX side of a batched
+    comparison. Traced without vmap, a large program (the dynamics and
+    their derivatives) traces and compiles in about three quarters of the
+    vmapped program's time, to the same values (within 2e-13 on the
+    second-order derivatives)."""
+    f = jax.jit(fn)
+
+    def batched(*args):
+        outs = [f(*(a[i] for a in args)) for i in range(args[0].shape[0])]
+        return jax.tree_util.tree_map(lambda *xs: np.stack(xs), *outs)
+    return batched
 
 
 def cols(a):
@@ -131,28 +150,50 @@ def run_solve_channels(jm, jcp, X, U, lam, x_s, ref, fe, rho, drho, mu, tol,
 # ---- the JAX package's rollouts and rk4_step with their solve and
 # dynamics compiled once each (jax_in_pieces) ----
 
-_fd_jit = jax.jit(JA.fd)
-_fd_tangent_jit = jax.jit(lambda primals, tangents: jax.jvp(JA.fd, primals, tangents)[1])
-_sim_step_jit = jax.jit(jax_sim_step, static_argnames=("integrator_type",))
+def _fd_tangent(primals, tangents):
+    return jax.jvp(JA.fd, primals, tangents)[1]
 
 
-def _on_host(fn, *args):
-    """fn(*args) (a jitted function) from inside a JAX trace, called on the
-    host through jax.pure_callback; under vmap once for each element."""
+# {(piece, static arguments, input signature): (compiled piece, its output
+# shapes)}, kept while one test file runs (jax_in_pieces empties it when
+# another file's test asks): one trace and one compile each
+_PIECES = {}
+_PIECES_FILE = [None]
+
+
+def _piece(key, fn, args):
+    """fn (a function of arrays) traced, lowered and compiled once for the
+    shapes and dtypes of `args`, and its output shapes from the same trace
+    (jax.eval_shape and a jitted call would trace it twice)."""
+    leaves, tree = jax.tree_util.tree_flatten(args)
+    sig = (key, tree, tuple((jnp.shape(x), jnp.result_type(x)) for x in leaves))
+    if sig not in _PIECES:
+        structs = jax.tree_util.tree_unflatten(
+            tree, [jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in sig[2]])
+        traced = jax.jit(fn).trace(*structs)
+        _PIECES[sig] = (traced.lower().compile(), traced.out_info)
+    return _PIECES[sig]
+
+
+def _on_host(key, fn, *args):
+    """fn(*args) from inside a JAX trace, compiled once for its inputs'
+    shapes (_piece, `key` naming fn and its static arguments) and called on
+    the host through jax.pure_callback; under vmap once for each element."""
+    compiled, out_info = _piece(key, fn, args)
+
     def host(*a):
-        return jax.tree_util.tree_map(np.asarray, fn(*a))
-    return jax.pure_callback(host, jax.eval_shape(fn, *args), *args,
-                             vmap_method="sequential")
+        return jax.tree_util.tree_map(np.asarray, compiled(*a))
+    return jax.pure_callback(host, out_info, *args, vmap_method="sequential")
 
 
 @jax.custom_jvp
 def _fd_on_host(model, q, qd, tau, f_ext):
-    return _on_host(_fd_jit, model, q, qd, tau, f_ext)
+    return _on_host("fd", JA.fd, model, q, qd, tau, f_ext)
 
 
 @_fd_on_host.defjvp
 def _fd_on_host_jvp(primals, tangents):
-    return _fd_on_host(*primals), _on_host(_fd_tangent_jit, primals, tangents)
+    return _fd_on_host(*primals), _on_host("fd_jvp", _fd_tangent, primals, tangents)
 
 
 def _fd(model, q, qd, tau, f_ext=None, transforms=None):
@@ -162,13 +203,18 @@ def _fd(model, q, qd, tau, f_ext=None, transforms=None):
 
 
 def _sim_step(model, x, u, dt, f_ext=None, integrator_type=2):
-    return _on_host(lambda *a: _sim_step_jit(*a, integrator_type=integrator_type),
+    return _on_host(("sim_step", integrator_type),
+                    lambda *a: jax_sim_step(*a, integrator_type=integrator_type),
                     model, x, u, dt, f_ext)
 
 
-def _solve_batched(model, settings, cp, hp, *arrays):
-    return _on_host(lambda *a: solve_batched_jit(a[0], settings, *a[1:]),
-                    model, cp, hp, *arrays)
+def _solve_batched(model, settings, cp, hp, X, U, lam, x_s, ref, f_ext, dt):
+    """The solve, its reference cut to the xyz it reads (ops/kkt_fast.py,
+    ops/merit_fast.py: ref[..., :3]), so that one compiled solve serves the
+    rollouts' (B, N, 6) and (B, N, 3) references."""
+    return _on_host(("solve_batched", settings),
+                    lambda *a: solve_batched_jit(a[0], settings, *a[1:]),
+                    model, cp, hp, X, U, lam, x_s, ref[..., :3], f_ext, dt)
 
 
 def jax_in_pieces(monkeypatch, *modules):
@@ -176,6 +222,10 @@ def jax_in_pieces(monkeypatch, *modules):
     rk4_step (gato_tpu.api.common), and the functions of `modules` that
     call fd, call solve_batched, fd and sim_step compiled on their own
     (module docstring)."""
+    test_file = os.environ.get("PYTEST_CURRENT_TEST", "").split("::")[0]
+    if test_file != _PIECES_FILE[0]:
+        _PIECES.clear()
+        _PIECES_FILE[0] = test_file
     monkeypatch.setattr(jrollout, "solve_batched", _solve_batched)
     monkeypatch.setattr(jrollout, "sim_step", _sim_step)
     for module in (jrollout, jcommon) + modules:
