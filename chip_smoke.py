@@ -37,22 +37,33 @@ cycle.
                 200 cycles), `[rollout-estimator]` (the sphere search and
                 the Gauss-Newton observer at examples/force_adaptive.py's
                 working point and at N=32 B=512), `[rollout-goals]` (three
-                goals with the pendulum plant) and `[runner]`
+                goals with the indy7 + 15 kg pendulum plant on its
+                generated rk4 library, the cycle split into its parts)
+                and `[runner]`
                 (ExperimentRunner at B = 1, 32, 128, 512). rk4's wrench
                 branch is held against its plain version first (`[compare]
                 rk4 ... with a wrench`);
-  second plant  iiwa14 (nq = 7), the kernels bsqp_iter and rk4 built for it
-                (iiwa14_phases): `[iiwa14-kernels]` (bsqp_iter held to its
-                plain version as indy7's is at N=32 with B=128 and 512, at
-                the shared layout's last N and at N=128, B=512; rk4 in both
-                variants at B=1 and 512 with and without a wrench; each
-                shared-layout G timed), `[bench-iiwa14]` (the fig-8 cycle at
-                N=32 B=512, bench.py --plant iiwa14), `[rollout-iiwa14]`
-                (closed_loop_rollout toward a goal 8.8 cm away, held below
-                0.03 m) and `[rollout-goals-iiwa14]` (examples/pickplace.py's
-                device loop on the port, gato_tpu_torch.examples.
-                pickplace_device: iiwa14 + 15 kg pendulum, five goals,
-                12,502 cycles at B=128; outcomes printed, not held).
+  second plant  iiwa14 (nq = 7), the kernels bsqp_iter, iter, merit and rk4
+                built for it, and rk4 for the pendulum plants (indy7 and
+                iiwa14 + 15 kg at 0.3 m, nq = 9 and 10: their headers
+                generated from the registered constants and built with
+                the other libraries; iiwa14_phases): `[iiwa14-kernels]`
+                (bsqp_iter held to its plain version as indy7's is at N=32
+                with B=128 and 512, at the shared layout's last N and at
+                N=128, B=512; iter and merit at N=32 B=512 as indy7's; rk4
+                in both variants at B=1 and 512 with and without a wrench,
+                on each pendulum plant at B=1 and 128; each shared-layout
+                G timed; the staged route past N = 128 and with
+                iter_kernel="off" raises naming kkt), `[bench-iiwa14]` (the
+                fig-8 cycle at N=32 B=512, bench.py --plant iiwa14, on the
+                default route and on the fused-iteration route),
+                `[rollout-iiwa14]` (closed_loop_rollout toward a goal 8.8
+                cm away, held below 0.03 m) and `[rollout-goals-iiwa14]`
+                (examples/pickplace.py's device loop on the port,
+                gato_tpu_torch.examples.pickplace_device: iiwa14 + 15 kg
+                pendulum, five goals, 12,502 cycles at B=128, the plant on
+                rk4; outcomes printed, not held; the cycle split into its
+                parts).
 
 The pcg kernel comes in variants (layout, G, C): one CTA per problem with
 its blocks in shared memory, a thread-block cluster of C CTAs per problem,
@@ -100,8 +111,9 @@ reads the N=32 tracking gate (its windows) from nearby warm-ups, and
 compares rk4's variants built with and without multiply-add fusion.
 
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ for their plants
-(bsqp_iter and rk4 for indy7 and iiwa14, the rest for indy7: one nvcc each,
-all at once), holds each against its plain PyTorch version on the steady-state
+(bsqp_iter, iter, merit and rk4 for indy7 and iiwa14, kkt and pcg for
+indy7, rk4 also for the two pendulum plants: one nvcc each, all at once),
+holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
 and 128, B=512, the shared layout's last N and the global layout, where
 the limits give way to float32's own measured noise; pcg and kkt in every
@@ -130,6 +142,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -170,6 +183,7 @@ from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda, pcg_variant
 from gato_tpu_torch.ops.cuda_pcg import smem_bytes as pcg_smem_bytes
 from gato_tpu_torch.ops.cuda_pcg import variant_resources as pcg_resources
 from gato_tpu_torch.ops.cuda_sim import rk4_plain, rk4_step_batched
+from gato_tpu_torch.ops.integrators import sim_step
 from gato_tpu_torch.ops.cuda_solve import (IterState, Problem, sqp_iter_cuda,
                                            sqp_iter_reference,
                                            sqp_solve_chained)
@@ -790,24 +804,35 @@ def compare_iteration(f, state, i, noise_floor=False):
     return prob, s0, res
 
 
-def compare_rk4(f, state):
-    """The plant step at the main path's shape (B = 1, 2 substeps), in
-    every variant of the kernel (the default first). Returns (x, u, the
-    default's max abs error)."""
-    x, u = state[3][:1].contiguous(), state[1][:1, 0].contiguous()
-    p = rk4_plain(f.model, x, u, DT, None, RK4_SUBSTEPS)
+def hold_rk4(model, x, u, fe, dt, what=""):
+    """rk4 in every variant (the default first) against rk4_plain on one
+    input, RK4_SUBSTEPS substeps over dt, held at RK4_RTOL of the largest
+    |x|; `what` describes the input. Returns {variant: max abs error}."""
+    p = rk4_plain(model, x, u, dt, fe, RK4_SUBSTEPS)
     tol = RK4_RTOL * p.abs().max().item()
+    wrench = "with" if fe is not None else "without"
     errs = {}
     for v in (cuda_sim.DEFAULT,) + tuple(v for v in cuda_sim.VARIANTS if v != cuda_sim.DEFAULT):
-        k = rk4_step_batched(f.model, x, u, DT, None, RK4_SUBSTEPS, variant=v)
+        k = rk4_step_batched(model, x, u, dt, fe, RK4_SUBSTEPS, variant=v)
         torch.cuda.synchronize()
         errs[v] = (k - p).abs().max().item()
-        log(f"[compare] rk4 kernel ({f.model.name}, {v}"
-            f"{', the default' if v == cuda_sim.DEFAULT else ''}) vs "
-            f"rk4_channels (B=1, {RK4_SUBSTEPS} substeps): max abs err {errs[v]:.3e}, "
-            f"tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
+        log(f"[compare] rk4 kernel ({model.name}, {v}"
+            f"{', the default' if v == cuda_sim.DEFAULT else ''}) vs rk4_channels {wrench} a "
+            f"wrench (B={x.shape[0]}, {RK4_SUBSTEPS} substeps of {dt / RK4_SUBSTEPS:g} s{what}): "
+            f"max abs err {errs[v]:.3e}, tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
         if not (torch.isfinite(k).all() and errs[v] <= tol):
-            raise RuntimeError(f"rk4 kernel ({v}) disagrees with its plain version")
+            raise RuntimeError(f"rk4 kernel ({model.name}, {v}) disagrees with its plain "
+                               f"version at B={x.shape[0]} {wrench} a wrench")
+    return errs
+
+
+def compare_rk4(f, state):
+    """The plant step at the main path's shape (B = 1, 2 substeps), in
+    every variant of the kernel (the default first), then with a wrench
+    and at B = 512 (hold_rk4). Returns (x, u, the default's max abs
+    error at the main path's shape)."""
+    x, u = state[3][:1].contiguous(), state[1][:1, 0].contiguous()
+    err = hold_rk4(f.model, x, u, None, DT, ", the main path input")[cuda_sim.DEFAULT]
     # the wrench branch (f_ext, the EE-frame wrench the estimator rollout
     # steps its plant under): B = 1 with the rollout's world wrench in the EE
     # frame at this state, B = 512 with per-lane wrenches as f.f_ext's; and
@@ -819,24 +844,11 @@ def compare_rk4(f, state):
     xw = (torch.rand(B, nx, generator=g).to(f.dev) * 2 - 1)
     uw = (torch.rand(B, nq, generator=g).to(f.dev) * 10 - 5)
     few = (torch.rand(B, 6, generator=g).to(f.dev) * 10 - 5)
-    wrenches = {1: f"the estimator rollout world wrench {list(EST_WRENCH)} N at the state",
-                B: "uniform in +-5 per lane"}
-    for b, (xb, ub, fb) in ((1, (x, u, fe1)), (B, (xw, uw, few)), (B, (xw, uw, None))):
-        p = rk4_plain(f.model, xb, ub, DT, fb, RK4_SUBSTEPS)
-        tol = RK4_RTOL * p.abs().max().item()
-        for v in (cuda_sim.DEFAULT,) + tuple(v for v in cuda_sim.VARIANTS if v != cuda_sim.DEFAULT):
-            k = rk4_step_batched(f.model, xb, ub, DT, fb, RK4_SUBSTEPS, variant=v)
-            torch.cuda.synchronize()
-            err = (k - p).abs().max().item()
-            log(f"[compare] rk4 kernel ({f.model.name}, {v}) vs rk4_channels "
-                f"{'with a wrench' if fb is not None else 'without a wrench'} (B={b}, "
-                f"{RK4_SUBSTEPS} substeps"
-                f"{', EE-frame f_ext: ' + wrenches[b] if fb is not None else ''}): "
-                f"max abs err {err:.3e}, tolerance {tol:.3e} (rtol {RK4_RTOL} of max |x|)")
-            if not (torch.isfinite(k).all() and err <= tol):
-                raise RuntimeError(f"rk4 kernel ({f.model.name}, {v}) disagrees with its plain "
-                                   f"version at B={b} {'with' if fb is not None else 'without'} "
-                                   f"a wrench")
+    for xb, ub, fb, what in (
+            (x, u, fe1, f", EE-frame f_ext: the estimator rollout world wrench "
+                        f"{list(EST_WRENCH)} N at the state"),
+            (xw, uw, few, ", EE-frame f_ext: uniform in +-5 per lane"), (xw, uw, None, "")):
+        hold_rk4(f.model, xb, ub, fb, DT, what)
     # crba runs fd's own expressions, split over two warps: against the
     # one-thread kernel it differs only where ptxas fuses a multiply-add in
     # one kernel and not in the other, which depends on the code around it
@@ -851,7 +863,7 @@ def compare_rk4(f, state):
             f"{', the main path input' if b == 1 else ''}): "
             f"equal bit for bit {torch.equal(*outs)}, max abs difference "
             f"{(outs[0] - outs[1]).abs().max().item():.3e} (reported)")
-    return x, u, errs[cuda_sim.DEFAULT]
+    return x, u, err
 
 
 def noise_limits(steps, counts, traj):
@@ -923,7 +935,7 @@ def compare_core(f, state, i, noise_floor=False):
     fin = ~(kd | pd | d64)
     diff = (ko[3] - ro[3]).abs()
     same = (diff == 0) & fin
-    if noise_floor and iteration_variant(f.N) != ("global", 1):
+    if noise_floor and iteration_variant(f.N, f.model.nx) != ("global", 1):
         # the same input through the global layout: the shared layout's
         # non-finite lanes against the global one's (reported)
         kg = sqp_iter_core_cuda(f.model, f.cp, *args, skip, DT, mpcg, variant=("global", 1))
@@ -956,7 +968,8 @@ def compare_core(f, state, i, noise_floor=False):
         lim = noise_limits(None, (ro[3], o64[3]),
                            {n: (ro[j][quiet], o64[j][quiet]) for j, n in enumerate(names)})
     res["limits"] = lim
-    log(f"[compare] iter kernel ({variant_name(f.N)}) vs sqp_iter_core_reference "
+    log(f"[compare] iter kernel ({f.model.name}, {variant_name(f.N, f.model.nx)}) vs "
+        f"sqp_iter_core_reference "
         f"(float32, N={f.N} B={f.B}, identical steady-state input):")
     log(f"  PCG counts within {PCG_SLACK} on {res['pcg_within_frac']:.4f} of "
         f"lanes (tolerance >= {lim['counts']:.4f}{LIMIT_NOTE[noise_floor]}); "
@@ -1241,7 +1254,7 @@ def compare_merit(f, X, U, dzx, dzu, x_s, ref):
         torch.cuda.synchronize()
         rel = ((mk.double() - mp.double()).abs() / mp.double().abs()).max().item()
         errs[v] = (mk - mp).abs().max().item()
-        log(f"[compare] merit kernel ({v}"
+        log(f"[compare] merit kernel ({f.model.name}, {v}"
             f"{', the default' if v == MERIT_DEFAULT else ''}) vs merit_alphas_batched "
             f"(N={f.N}, B={f.B}, {len(alphas)} alphas): max rel err {rel:.3e} (tolerance "
             f"{MERIT_ALPHA_RTOL}), max abs err {errs[v]:.3e}")
@@ -1249,7 +1262,8 @@ def compare_merit(f, X, U, dzx, dzu, x_s, ref):
             raise RuntimeError(f"merit kernel ({v}) disagrees with its plain version")
     outs = [merit_alphas_batched_cuda(f.model, f.cp, *args, variant=v)
             for v in cuda_merit.VARIANTS]
-    log(f"[compare] merit {' against '.join(cuda_merit.VARIANTS)} (N={f.N}, B={f.B}): equal "
+    log(f"[compare] merit {' against '.join(cuda_merit.VARIANTS)} ({f.model.name}, N={f.N}, "
+        f"B={f.B}): equal "
         f"bit for bit {torch.equal(*outs)} (reported)")
     return args, errs[MERIT_DEFAULT]
 
@@ -1274,18 +1288,22 @@ def sass_counts(name):
     return counts
 
 
+# the rk4 kernels' mangled names, and the variant of a match
+RK4_PATTERN = r"rk4_(split|one)_kernel"
+
+
+def rk4_variant_of(m):
+    return dict(split="crba", one="one")[m.group(1)]
+
+
 def report_rk4_merit_variants(sms):
     """A [variant] line for each rk4 and merit variant: threads a CTA, CTAs
     per SM and the waves of the main shapes (merit: N=32 B=512, 9 alphas),
     ptxas' registers and spills. No rk4 variant and not the merit default
     may spill."""
-    def key(m):
-        return dict(split="crba", one="one")[m.group(1)]
-
-    pattern = r"rk4_(split|one)_kernel"
-    px = ptxas_lines("rk4", pattern, key)
-    sass = {key(re.search(pattern, fn)): n for fn, n in sass_counts("rk4").items()
-            if re.search(pattern, fn)}
+    px = ptxas_lines("rk4", RK4_PATTERN, rk4_variant_of)
+    sass = {rk4_variant_of(re.search(RK4_PATTERN, fn)): n
+            for fn, n in sass_counts("rk4").items() if re.search(RK4_PATTERN, fn)}
     for v in cuda_sim.VARIANTS:
         log(f"[variant] rk4 {v}{' (the default)' if v == cuda_sim.DEFAULT else ''}: "
             f"{128 if v == 'one' else 64} threads a CTA, "
@@ -1686,7 +1704,7 @@ def route_ab(f, state, i0, card, k, gates, earlier, fixed=False):
 def route_run(f, state, i0, gates, expect, card):
     """K cycles on one route with the launches counted; checks the counts
     against `expect` (every other kernel but rk4 launched 0 times); returns
-    the counts."""
+    (the counts, the cycle's median ms)."""
     reset_launches()
     out = f.run(state, i0, f.solver(f.settings_with(*gates)), f.plant_kernel)
     got = launches()
@@ -1698,9 +1716,9 @@ def route_run(f, state, i0, gates, expect, card):
     med = statistics.median(ms_cycle)
     log(f"[timing] {card}: route {gates} per-cycle median {med:.3f} ms "
         f"({f.B / (med / 1e3):.1f} solves/s); CUDA events over {K} cycles, "
-        f"indy7 N={f.N} B={f.B}")
+        f"{f.model.name} N={f.N} B={f.B}")
     log(f"[work] route {gates} 8-cycle trace: {json.dumps(work_trace(pcg, step))}")
-    return got
+    return got, med
 
 
 @contextlib.contextmanager
@@ -2214,9 +2232,11 @@ def goals_rollout_phase(dev, card):
     5-10 cm from the start EE, GOAL_TIMEOUT s each, enough cycles for every
     goal to resolve, at examples/pickplace.py's control_dt of 2 ms (at 10 ms
     the 15 kg pendulum on indy7 diverges within 12 cycles, on the CPU's plain
-    route too, with or without the estimator). Held: graph against eager (the pendulum plant steps on
-    the rigid-body algorithms inside the graph: one bsqp_iter launch a
-    cycle, no rk4), every goal reached or timed out, finite states."""
+    route too, with or without the estimator). Held: graph against eager (one
+    bsqp_iter and one rk4 launch a captured cycle: the pendulum plant on its
+    generated rk4 library), every goal reached or timed out, finite states.
+    Then the cycle's parts (cycle_split). Returns the launches, ms a cycle
+    and the parts."""
     model = load_robot("indy7", torch.float32, dev)
     pend = PENDULUM_DEFAULT_PARAMS
     sim = add_pendulum(model, mass=pend["mass"], length=pend["length"])
@@ -2241,8 +2261,8 @@ def goals_rollout_phase(dev, card):
             goal_timeout=GOAL_TIMEOUT, sim_substeps=2, pendulum_damping=pend["damping"],
             graph=graph)
 
-    out, replay_ms, eager_ms, _ = graph_against_eager(
-        "rollout-goals", call, dict(bsqp_iter=P["max_sqp_iters"], rk4=0), card,
+    out, replay_ms, eager_ms, got = graph_against_eager(
+        "rollout-goals", call, dict(bsqp_iter=P["max_sqp_iters"], rk4=1), card,
         before_loop=P["max_sqp_iters"])
     xs, ees, dists, gidx, bests, outcomes, reached_t = out[:7]
     finite = bool(torch.isfinite(xs).all())
@@ -2256,7 +2276,9 @@ def goals_rollout_phase(dev, card):
         f"{finite}; {replay_ms:.4f} ms a cycle from the graph, {eager_ms:.3f} ms eager")
     if not (finite and all(o in (1, 2) for o in oc)):
         raise RuntimeError("[rollout-goals] failed")
-    return replay_ms
+    return dict(launches=got, ms=replay_ms, split=cycle_split(
+        "rollout-goals", model, sim, settings, cp, hp, x_sim0, goals[0], GOALS_B, DT,
+        replay_ms, card, 0))
 
 
 def runner_phase(card):
@@ -2280,11 +2302,13 @@ def runner_phase(card):
 
 
 def rollout_phases(f, dev, card, default_cycle_ms):
-    """The rollouts, each cycle one CUDA graph, and the experiment runner."""
+    """The rollouts, each cycle one CUDA graph, and the experiment runner.
+    Returns [rollout-goals]' launches, ms a cycle and parts."""
     rollout_phase(f, card, default_cycle_ms)
     estimator_phase(dev, card)
-    goals_rollout_phase(dev, card)
+    goals = goals_rollout_phase(dev, card)
     runner_phase(card)
+    return goals
 
 
 IIWA = "iiwa14"
@@ -2307,6 +2331,152 @@ REACH_COST = dict(q_cost=2.0, qd_cost=1e-2, u_cost=2e-6, N_cost=50.0, q_lim_cost
 # [rollout-goals-iiwa14]: examples/pickplace.py::main_device's loop on the
 # port (gato_tpu_torch.examples.pickplace_device) at its largest batch
 PICKPLACE_B = 128
+# the pendulum plants (add_pendulum of indy7 and iiwa14 at
+# PENDULUM_DEFAULT_PARAMS' mass and length: the goals rollouts' plants),
+# whose rk4 headers are generated and built with the other libraries at
+# the run's start; [iiwa14-kernels] holds rk4 on each as compare_rk4 holds
+# the others (RK4_RTOL of the largest |x|), at the rollouts' B = 1 and at
+# PENDULUM_WIDE_B, over their plant step (GOALS_CONTROL_DT, 2 substeps)
+PENDULUM_BASES, PENDULUM_WIDE_B = ("indy7", IIWA), PICKPLACE_B
+def pendulum_plants(dev):
+    """{base: (add_pendulum(base) at PENDULUM_DEFAULT_PARAMS' mass and
+    length, float32 on dev; the slug of its generated rk4 plant)}: the
+    header is generated and registered here, before any build."""
+    pend = PENDULUM_DEFAULT_PARAMS
+    out = {}
+    for base in PENDULUM_BASES:
+        m = add_pendulum(load_robot(base, torch.float32, dev), mass=pend["mass"],
+                         length=pend["length"])
+        out[base] = (m, cuda_sim.require_cuda_robot(m, "rk4"))
+    return out
+
+
+def build_kernels(dev):
+    """Every library at once (one nvcc process each): the committed
+    plants' (_build.LIBRARIES) and rk4 for the pendulum plants. Returns
+    (pendulum_plants, every (kernel, plant) built)."""
+    pend = pendulum_plants(dev)
+    libs = _build.LIBRARIES + tuple(("rk4", slug) for _, slug in pend.values())
+    t0 = time.perf_counter()
+    secs = _build.build(libs)
+    log(f"[build] nvcc seconds per kernel: {secs}; total {time.perf_counter() - t0:.1f} s "
+        f"({len(libs)} libraries; the pendulum plants' headers generated at "
+        f"{', '.join(_build.GENERATED_DIR + '/' + slug + '.cuh' for _, slug in pend.values())})")
+    return pend, libs
+
+
+def compare_rk4_pendulum(model, dev, seed=7):
+    """rk4 for a pendulum plant (its generated library) against rk4_plain
+    (hold_rk4), at B = 1 and PENDULUM_WIDE_B, with and without an
+    EE-frame wrench (uniform in +-5 per lane), over the goals rollouts'
+    plant step: arm joints and rates uniform in +-1, the payload's gimbal
+    angles in +-0.5 rad, arm torques in +-20 N m, the gimbal's in +-1 (the
+    damping's size). Returns (x, u at B = 1, the default's max abs error
+    there without a wrench)."""
+    g = torch.Generator().manual_seed(seed)
+    nq = model.nq
+    scale = torch.ones(nq)
+    scale[nq - 3:] = 0.5
+    first = None
+    for b in (1, PENDULUM_WIDE_B):
+        q = (torch.rand(b, nq, generator=g) * 2 - 1) * scale
+        qd = torch.rand(b, nq, generator=g) * 2 - 1
+        u = (torch.rand(b, nq, generator=g) * 40 - 20) * torch.where(scale < 1, 0.05, 1.0)
+        fe = torch.rand(b, 6, generator=g) * 10 - 5
+        x, u, fe = torch.cat([q, qd], 1).to(dev), u.to(dev), fe.to(dev)
+        errs = {fb is None: hold_rk4(model, x, u, fb, GOALS_CONTROL_DT)[cuda_sim.DEFAULT]
+                for fb in (None, fe)}
+        first = first or (x, u, errs[True])
+    return first
+
+
+def pendulum_rk4_phase(pend, card):
+    """[iiwa14-kernels]' pendulum part: for each pendulum plant its rk4
+    library's ptxas lines (registers, spills: recorded, not held; a
+    spilling kernel that is right is kept), the holds of
+    compare_rk4_pendulum, each variant's device ms at B = 1 (two rounds)
+    against the latency bound from its generated header's depths, and the
+    wrapper-call and plain ms. Returns {slug: the kernels line's numbers}."""
+    out = {}
+    mhz = sm_max_clock_mhz()
+    for base, (model, slug) in pend.items():
+        px = ptxas_lines("rk4", RK4_PATTERN, rk4_variant_of, slug)
+        for v in cuda_sim.VARIANTS:
+            log(f"[variant] rk4 {model.name} ({slug}) {v}"
+                f"{' (the default)' if v == cuda_sim.DEFAULT else ''}: ptxas: {px[v]}; "
+                f"spill stores {spill_bytes(px[v])} B a thread")
+        x, u, err = compare_rk4_pendulum(model, model.R_tree.device)
+        rk4_ms = time_in_rounds(
+            cuda_sim.VARIANTS, lambda v: rk4_step_batched(model, x, u, GOALS_CONTROL_DT, None,
+                                                          RK4_SUBSTEPS, variant=v),
+            200, card, f"rk4 {model.name}", cuda_sim.DEFAULT)
+        plain_ms = event_ms(lambda: rk4_plain(model, x, u, GOALS_CONTROL_DT, None,
+                                              RK4_SUBSTEPS), 3)
+        stats = header_stats(_build.GENERATED[slug][0])
+        b = bound(RK4_SUBSTEPS * (4 * stats["fd"][0] + plant_ops(model.nq)["rk4_axpy"]),
+                  nbytes(x, u) + nbytes(x))
+        lat = {v: rk4_latency_bound(stats, mhz, v) for v in cuda_sim.VARIANTS}
+        if lat[cuda_sim.DEFAULT][0] > b[0]:
+            b = (lat[cuda_sim.DEFAULT][0], "latency")
+        log(f"[bound] rk4 {model.name} ({slug}) at B=1: (operations, depth) of the generated "
+            f"functions {stats}; bound {b[0]:.5f} ms by {b[1]}; latency per variant "
+            + ", ".join(f"{v} {lat[v][0]:.5f} ms (depth {lat[v][1]}), {rk4_ms[v][0]:.5f} ms on "
+                        f"the card, {lat[v][0] / rk4_ms[v][0]:.4f} of it reached"
+                        for v in cuda_sim.VARIANTS)
+            + f"; per wrapper call {rk4_ms[cuda_sim.DEFAULT][1]:.5f} ms; plain version "
+            f"{plain_ms:.3f} ms ({card})")
+        out[slug] = dict(plant=model.name, max_abs_err=err, ms=rk4_ms[cuda_sim.DEFAULT][0],
+                         crba_ms=rk4_ms["crba"][0], plain_ms=plain_ms, bound_ms=b[0],
+                         bound_by=b[1], ptxas={v: px[v] for v in cuda_sim.VARIANTS})
+    return out
+
+
+def cycle_split(tag, model, sim, settings, cp, hp, x_sim0, goal, b, dt, cycle_ms, card,
+                score_substeps):
+    """The goals rollout's cycle in parts, each timed alone on the device
+    (graph_ms) at the loop's shapes and its first state: the plant step
+    (one rk4 launch, B = 1), the solve (max_sqp_iters bsqp_iter launches and
+    the chained loop around them, device_exit=True; warm-started from one solve
+    of that state, as the loop's solves are from the last cycle's), the RK4
+    scoring of the b
+    hypotheses on the rigid-body algorithms (score_substeps; with 0 the
+    solver's integrator, sim_step, over the cycle; none at b <= 3);
+    what the cycle (cycle_ms, from the graph's replays) holds besides
+    them is the goal bookkeeping and the estimator. Logs and returns
+    {part: ms}."""
+    nq, nx, nu, N = model.nq, model.nx, model.nu, settings.N
+    nq_s = sim.nq
+    g = torch.Generator().manual_seed(9)
+    dev = x_sim0.device
+    x0 = torch.cat([x_sim0[:nq], x_sim0[nq_s:nq_s + nq]])
+    u_sim = torch.cat([torch.rand(nq, generator=g).to(dev) * 10 - 5, torch.zeros(3, device=dev)])
+    batch = (torch.rand(b, 6, generator=g) * 10 - 5).to(dev)
+    X = x0.expand(b, N, nx).contiguous()
+    U, lam = torch.zeros(b, N - 1, nu, device=dev), torch.zeros(b, N, nx, device=dev)
+    x_s = x0.expand(b, nx).contiguous()
+    ref = goal[None, None, :].expand(b, N, 3).contiguous()
+    Xo, U, lam, _, _ = solve_batched(model, settings, cp, hp, X, U, lam, x_s, ref, batch, dt,
+                                     device_exit=True)
+    X = torch.cat([x_s[:, None], Xo[:, 1:]], 1)
+    parts = dict(
+        plant=graph_ms(lambda: rollout_mod._plant_step(sim, x_sim0, u_sim, GOALS_CONTROL_DT,
+                                                       RK4_SUBSTEPS), 50),
+        solve=graph_ms(lambda: solve_batched(model, settings, cp, hp, X, U, lam, x_s, ref, batch,
+                                             dt, device_exit=True), 5))
+    if b > 3 and score_substeps > 0:
+        parts["scoring"] = graph_ms(lambda: rollout_mod._rk4_algorithms(
+            model, x0.expand(b, nx), U[:, 0], GOALS_CONTROL_DT, None, score_substeps,
+            f_ext=batch), 5)
+    elif b > 3:
+        parts["scoring"] = graph_ms(lambda: sim_step(
+            model, x0.expand(b, nx), U[:, 0], GOALS_CONTROL_DT, batch,
+            settings.integrator_type), 5)
+    parts["rest"] = cycle_ms - sum(parts.values())
+    log(f"[{tag}] {card}: the cycle's parts, each alone on the device (graph_ms, the loop's "
+        f"first state, the solve warm-started): " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f" (rest: the cycle's {cycle_ms:.4f} ms less the others: goal bookkeeping, the "
+        f"estimator, the copies around the replays)")
+    return parts
 
 
 def iiwa14_variants(card, f, prob, s0):
@@ -2345,17 +2515,46 @@ def iiwa14_variants(card, f, prob, s0):
     return ms
 
 
-def iiwa14_kernels_phase(dev, card):
-    """[iiwa14-kernels]: bsqp_iter and rk4 built for iiwa14, each held to
-    its plain version on identical float32 inputs from iiwa14's fig-8
-    steady state (bench.py --plant iiwa14: DEFAULT_SOLVER_PARAMS, the
-    elbow-bent start, the fig-8 centred on its EE, wrench hypotheses +-5
-    with lane 0 zero), with indy7's holds: compare_iteration at
-    IIWA_CHECKS (the long horizons with noise_limits), compare_rk4 in both
-    variants at B=1 and B=512 with and without a wrench. Then the
-    variants' lines and times, and each kernel's device, wrapper-call and
-    plain ms at N=32 B=512 (rk4 at B=1). Returns the numbers of the
-    kernels line."""
+def iiwa14_unserved(f):
+    """iiwa14's solves that reach the kkt and pcg kernels (route "staged":
+    past N = 128, or iter_kernel="off") raise NotImplementedError naming
+    the kkt kernel and the ROADMAP item, before any launch."""
+    nq, nx = f.model.nq, f.model.nx
+    for n, gates in ((cuda_iter.MAX_KNOTS + 1, ("auto", "auto")), (N, ("off", "off"))):
+        b = 2
+        settings = BSQPSettings(N=n, max_sqp_iters=1, max_pcg_iters=10,
+                                solve_kernel=gates[0], iter_kernel=gates[1])
+        hp = HyperParams.create(b, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"], device=f.dev)
+        z = functools.partial(torch.zeros, device=f.dev)
+        reset_launches()
+        try:
+            solve_batched(f.model, settings, f.cp, hp, z(b, n, nx), z(b, n - 1, nq), z(b, n, nx),
+                          z(b, nx), z(b, n, 6), z(b, 6), DT)
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            msg = None
+        got = launches()
+        log(f"[route] {IIWA} N={n} gates {gates} ({select_route(*gates, n, True)}): raises "
+            f"{msg!r}; launches {got}")
+        if not (msg and "kkt kernel" in msg and "ROADMAP Queue 2" in msg
+                and not any(got.values())):
+            raise RuntimeError(f"{IIWA}'s staged route at N={n} did not raise before a launch")
+
+
+def iiwa14_kernels_phase(dev, card, pend):
+    """[iiwa14-kernels]: bsqp_iter, iter, merit and rk4 built for iiwa14,
+    each held to its plain version on identical float32 inputs from
+    iiwa14's fig-8 steady state (bench.py --plant iiwa14:
+    DEFAULT_SOLVER_PARAMS, the elbow-bent start, the fig-8 centred on its
+    EE, wrench hypotheses +-5 with lane 0 zero), with indy7's holds:
+    compare_iteration at IIWA_CHECKS (the long horizons with noise_limits),
+    compare_core and compare_merit at N=32 B=512, compare_rk4 in both
+    variants at B=1 and B=512 with and without a wrench; rk4 for the
+    pendulum plants (pendulum_rk4_phase); the staged route's raise
+    (iiwa14_unserved). Then the variants' lines and times, and each
+    kernel's device, wrapper-call and plain ms at N=32 B=512 (rk4 at B=1).
+    Returns the numbers of the kernels line."""
     res = {}
     for n, b in IIWA_CHECKS:
         fc = Fig8(dev, n, b, IIWA)
@@ -2366,10 +2565,24 @@ def iiwa14_kernels_phase(dev, card):
             del fc, state_c
             res[n, b] = res[n, b][-1]
     f, state, i0, prob, s0, iter_res = res[N, B]
+    X, U, lam, x_s = state
+    ref = f.ref(i0 - 1)
+    core_args, core_skip, core_ref, core_res = compare_core(f, state, i0 - 1)
+    dzx, dzu = scrubbed(core_ref[0], core_ref[1])
+    merit_args, merit_err = compare_merit(f, X, U, dzx, dzu, x_s, ref)
+    iiwa14_unserved(f)
     xr, ur, rk4_err = compare_rk4(f, state)
+    pend_res = pendulum_rk4_phase(pend, card)
     lay = iiwa14_variants(card, f, prob, s0)
-    px = ptxas_lines("rk4", r"rk4_(split|one)_kernel",
-                     lambda m: dict(split="crba", one="one")[m.group(1)], IIWA)
+    pi = ptxas_variants("iter", IIWA)[taken_variant(N, f.model.nx)]
+    log(f"[variant] iter {IIWA} N={N} ({variant_name(N, f.model.nx)}, the variant N takes): "
+        f"ptxas: {pi}")
+    pm = ptxas_lines("merit", r"merit_(warps|one)_kernel", lambda m: m.group(1), IIWA)
+    for v in cuda_merit.VARIANTS:
+        log(f"[variant] merit {IIWA} {v}{' (the default)' if v == MERIT_DEFAULT else ''}: "
+            f"{cuda_merit.blocks_per_sm(v, IIWA)} CTAs per SM; ptxas: {pm[v]}; spill stores "
+            f"{spill_bytes(pm[v])} B a thread")
+    px = ptxas_lines("rk4", RK4_PATTERN, rk4_variant_of, IIWA)
     for v in cuda_sim.VARIANTS:
         log(f"[variant] rk4 {IIWA} {v}{' (the default)' if v == cuda_sim.DEFAULT else ''}: "
             f"ptxas: {px[v]}")
@@ -2382,7 +2595,13 @@ def iiwa14_kernels_phase(dev, card):
                    lambda: sqp_iter_reference(f.model, f.cp, prob, s0, f.settings,
                                               seeded=False), 20),
         rk4=(lambda: rk4_step_batched(f.model, xr, ur, DT, None, RK4_SUBSTEPS),
-             lambda: rk4_plain(f.model, xr, ur, DT, None, RK4_SUBSTEPS), 200))
+             lambda: rk4_plain(f.model, xr, ur, DT, None, RK4_SUBSTEPS), 200),
+        iter=(lambda: sqp_iter_core_cuda(f.model, f.cp, *core_args, core_skip, DT,
+                                         P["max_pcg_iters"]),
+              lambda: sqp_iter_core_reference(f.model, f.cp, *core_args, core_skip, DT,
+                                              P["max_pcg_iters"]), 20),
+        merit=(lambda: merit_alphas_batched_cuda(f.model, f.cp, *merit_args),
+               lambda: merit_alphas_batched(f.model, f.cp, *merit_args), 50))
     times = {name: (graph_ms(kf, reps), event_ms(kf, reps), event_ms(pf, 3))
              for name, (kf, pf, reps) in t.items()}
     log(f"[timing] {card}: {IIWA}, ms per call, kernel on the device (graph_ms) / per wrapper "
@@ -2391,31 +2610,35 @@ def iiwa14_kernels_phase(dev, card):
     # bounds from this run's inputs, as the main path's
     stats = generated_stats(IIWA)
     ops = plant_ops(f.model.nq)
-    X, U, lam, x_s = state
     vec = torch.empty(B, device=dev)
     A1 = f.settings.num_alphas + 1
+    core_ops = B * N * (stats["knot_kkt"][0] + ops["schur"] + ops["dz"] + ops["pcg_setup"])
+    merit_ops = B * A1 * N * (stats["knot_merit"][0] + ops["candidate"])
+    ref3 = ref[..., :3]
     bounds = dict(
-        bsqp_iter=bound(B * N * (stats["knot_kkt"][0] + ops["schur"] + ops["dz"]
-                                 + ops["pcg_setup"])
-                        + N * ops["pcg_iter"] * iter_res["kernel_pcg_sum"]
-                        + B * A1 * N * (stats["knot_merit"][0] + ops["candidate"]),
+        bsqp_iter=bound(core_ops + N * ops["pcg_iter"] * iter_res["kernel_pcg_sum"] + merit_ops,
                         nbytes(X, U, lam, x_s, prob.ref[..., :3], f.f_ext) + 17 * nbytes(vec)
                         + nbytes(X, U, lam)),
         rk4=bound(RK4_SUBSTEPS * (4 * stats["fd"][0] + ops["rk4_axpy"]),
-                  nbytes(xr, ur) + nbytes(xr)))
+                  nbytes(xr, ur) + nbytes(xr)),
+        iter=bound(core_ops + N * ops["pcg_iter"] * core_res["kernel_pcg_sum"],
+                   nbytes(X, U, lam, x_s, ref3, f.f_ext) + 3 * nbytes(vec)
+                   + nbytes(X, U, lam) + nbytes(vec)),
+        merit=bound(merit_ops, nbytes(X, U, dzx, dzu, x_s, ref3, f.f_ext, vec) + B * A1 * 4))
     mhz = sm_max_clock_mhz()
     lat = {v: rk4_latency_bound(stats, mhz, v) for v in cuda_sim.VARIANTS}
     if lat[cuda_sim.DEFAULT][0] > bounds["rk4"][0]:
         bounds["rk4"] = (lat[cuda_sim.DEFAULT][0], "latency")
-    for n in ("bsqp_iter", "rk4"):
+    for n in ("bsqp_iter", "rk4", "iter", "merit"):
         log(f"[bound] {n} {IIWA}: {times[n][0]:.4f} ms on the card, bound {bounds[n][0]:.5f} ms "
             f"by {bounds[n][1]} ({bounds[n][0] / times[n][0]:.4f} of the bound reached)"
             + (f"; latency per variant {', '.join(f'{v} {lat[v][0]:.5f} ms' for v in lat)}, "
                f"on the card {', '.join(f'{v} {rk4_ms[v][0]:.5f}' for v in rk4_ms)}"
                if n == "rk4" else ""))
     return f, state, i0, dict(
-        errs=dict(bsqp_iter=iter_res["X_max_abs_err"], rk4=rk4_err), times=times,
-        bounds=bounds, layouts=lay)
+        errs=dict(bsqp_iter=iter_res["X_max_abs_err"], rk4=rk4_err,
+                  iter=core_res["dZX_max_abs_err"], merit=merit_err), times=times,
+        bounds=bounds, layouts=lay, pendulum=pend_res)
 
 
 def rollout_iiwa14_phase(dev, card):
@@ -2461,9 +2684,10 @@ def goals_iiwa14_phase(dev, card):
     15 kg pendulum plant, the five goals, PICKPLACE_SOLVER_PARAMS, N=32,
     dt 0.03125, control_dt 2 ms, RK4-substepped scoring) at B=PICKPLACE_B
     over its 12,502 cycles. Held: graph against eager (five bsqp_iter
-    launches a captured cycle and no rk4: the pendulum plant steps on the
-    rigid-body algorithms; five more for the solve before the loop), finite
-    states. Printed, not held: each goal's outcome and reach time."""
+    launches and one rk4 launch a captured cycle: the pendulum plant on its
+    generated rk4 library; five more bsqp_iter for the solve before the
+    loop), finite states. Printed, not held: each goal's outcome and reach
+    time. Then the cycle's parts (cycle_split)."""
     from gato_tpu_torch.examples import pickplace_device as pp
 
     model, sim, settings, cp, hp, x_sim0, goals = pp.pickplace_setup(PICKPLACE_B, N, dev)
@@ -2478,7 +2702,7 @@ def goals_iiwa14_phase(dev, card):
 
     iters = settings.max_sqp_iters
     out, replay_ms, eager_ms, got = graph_against_eager(
-        "rollout-goals-iiwa14", call, dict(bsqp_iter=iters, rk4=0), card, before_loop=iters)
+        "rollout-goals-iiwa14", call, dict(bsqp_iter=iters, rk4=1), card, before_loop=iters)
     finite = bool(torch.isfinite(out[0]).all())
     row = rows[True]
     log(f"[rollout-goals-iiwa14] {card}: {IIWA} solver, {sim.name} plant (15 kg, 0.3 m), "
@@ -2489,7 +2713,9 @@ def goals_iiwa14_phase(dev, card):
         f"from the graph, {eager_ms:.3f} ms eager")
     if not finite:
         raise RuntimeError("[rollout-goals-iiwa14] failed")
-    return dict(launches=got, ms=replay_ms)
+    split = cycle_split("rollout-goals-iiwa14", model, sim, settings, cp, hp, x_sim0, goals[0],
+                        PICKPLACE_B, 0.03125, replay_ms, card, 2)
+    return dict(launches=got, ms=replay_ms, split=split)
 
 
 def bench_iiwa14_phase(f, state, i0, card, kernel_times):
@@ -2498,7 +2724,9 @@ def bench_iiwa14_phase(f, state, i0, card, kernel_times):
     iiwa14, BENCH_GRID_IIWA14.json's cell) over K cycles, launches counted
     from zero. Held: one bsqp_iter and one rk4 launch a cycle, a finite
     trajectory. Printed: cycle ms (median), solves/s, lane 0's tracking
-    error and the kernels' device ms (graph_ms, [iiwa14-kernels])."""
+    error and the kernels' device ms (graph_ms, [iiwa14-kernels]). Then
+    the same K cycles on the fused-iteration route (solve_kernel="off":
+    the iter and merit kernels, route_run), launches held."""
     reset_launches()
     state_k, ms_k, err_k, pcg_k, step_k = f.run(state, i0, f.solve_kernel, f.plant_kernel)
     got = launches()
@@ -2512,16 +2740,20 @@ def bench_iiwa14_phase(f, state, i0, card, kernel_times):
     if got != want or not torch.isfinite(state_k[0]).all():
         raise RuntimeError(f"[bench-iiwa14] launches {got} (expected {want}) or a non-finite "
                            "trajectory")
-    return dict(launches=got, ms=med)
+    solves = K * P["max_sqp_iters"]
+    iter_got, iter_med = route_run(f, state, i0, ("off", "auto"),
+                                   dict(iter=solves, merit=solves, rk4=K), card)
+    return dict(launches=got, ms=med, iter_launches=iter_got, iter_ms=iter_med)
 
 
-def iiwa14_phases(dev, card):
-    """The second plant: its kernels, its rollouts, its fig-8 cycle."""
-    f, state, i0, kern = iiwa14_kernels_phase(dev, card)
+def iiwa14_phases(dev, card, pend):
+    """The second plant and the pendulum plants: the kernels, the fig-8
+    cycle on the default and the fused-iteration routes, the rollouts."""
+    f, state, i0, kern = iiwa14_kernels_phase(dev, card, pend)
     bench = bench_iiwa14_phase(f, state, i0, card, kern["times"])
     rollout_iiwa14_phase(dev, card)
-    goals_iiwa14_phase(dev, card)
-    return kern, bench
+    goals = goals_iiwa14_phase(dev, card)
+    return kern, bench, goals
 
 
 def main(argv=None):
@@ -2558,10 +2790,7 @@ def main(argv=None):
     if args.fusion_probe:
         fusion_probe(card)
         return 0
-    t0 = time.perf_counter()
-    secs = _build.build()
-    log(f"[build] nvcc seconds per kernel: {secs}; total "
-        f"{time.perf_counter() - t0:.1f} s")
+    pend, libs = build_kernels(dev)
     if args.save_capped:
         save_capped_schur(dev, args.save_capped)
         return 0
@@ -2572,7 +2801,7 @@ def main(argv=None):
         estimator_witness(dev, card)
         return 0
     if args.iiwa14:
-        iiwa14_phases(dev, card)
+        iiwa14_phases(dev, card, pend)
         return 0
     if args.rollouts:
         f = Fig8(dev)
@@ -2581,7 +2810,7 @@ def main(argv=None):
         rollout_phases(f, dev, card, statistics.median(
             f.run(state, i0, f.solve_kernel, f.plant_kernel)[1]))
         return 0
-    for name, robot in _build.LIBRARIES:
+    for name, robot in libs:
         log(f"[build] ptxas {name} ({robot}):\n{_build.ptxas_report(name, robot).rstrip()}")
     stats = generated_stats()
     ops = {name: n for name, (n, _) in stats.items()}
@@ -2720,10 +2949,10 @@ def main(argv=None):
 
     # ---- the fused-iteration and the staged routes, K cycles each ----
     fused_l = route_run(
-        f, state, i0, ("off", "auto"), dict(iter=solves, merit=solves, rk4=K), card)
+        f, state, i0, ("off", "auto"), dict(iter=solves, merit=solves, rk4=K), card)[0]
     staged_l = route_run(
         f, state, i0, ("off", "off"), dict(kkt=solves, pcg=solves, merit=solves, rk4=K),
-        card)
+        card)[0]
     for gates, earlier in ((("auto", "auto"), "the two-warp rk4 (crba)"),
                            (("auto", "auto"), "the one-thread phase A"),
                            (("off", "auto"), "the one-thread phase A"),
@@ -2748,9 +2977,9 @@ def main(argv=None):
     mpc_phase(card)
     goals_phase(card)
     # ---- the on-device rollouts, each cycle one CUDA graph ----
-    rollout_phases(f, dev, card, med_k)
+    goals = rollout_phases(f, dev, card, med_k)
     # ---- the second plant: iiwa14's kernels, rollouts and fig-8 cycle ----
-    kern_i, bench_i = iiwa14_phases(dev, card)
+    kern_i, bench_i, goals_i = iiwa14_phases(dev, card, pend)
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":
@@ -2914,13 +3143,27 @@ def main(argv=None):
                     plants=list(_build.KERNELS[n]))
                for n in ("bsqp_iter", "rk4", "iter", "kkt", "pcg", "merit")]
     # the second plant's numbers beside the first's: held and timed in
-    # [iiwa14-kernels], launched on [bench-iiwa14]'s K cycles
+    # [iiwa14-kernels], launched on [bench-iiwa14]'s K cycles (iter and
+    # merit: on its fused-iteration route's); the pendulum plants' rk4
+    # (their slugs among its plants) held and timed in [iiwa14-kernels],
+    # launched by the goals rollouts' warm-up cycle and capture (each
+    # replay runs the captured launch, uncounted)
     for k in kernels:
         if IIWA in k["plants"]:
             n = k["name"]
-            k[IIWA] = dict(launches=bench_i["launches"][n], max_abs_err=kern_i["errs"][n],
+            run = bench_i["iter_launches"] if n in ("iter", "merit") else bench_i["launches"]
+            k[IIWA] = dict(launches=run[n], max_abs_err=kern_i["errs"][n],
                            ms=kern_i["times"][n][0], plain_ms=kern_i["times"][n][2],
                            bound_ms=kern_i["bounds"][n][0], bound_by=kern_i["bounds"][n][1])
+        if k["name"] == "rk4":
+            rollout_launches = {"indy7+pendulum": goals["launches"]["rk4"],
+                                "iiwa14+pendulum": goals_i["launches"]["rk4"]}
+            k["pendulum"] = {slug: dict(
+                plant=r["plant"], launches=rollout_launches[r["plant"]],
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+                for slug, r in kern_i["pendulum"].items()}
+            k["plants"] += list(k["pendulum"])
     for k in kernels:
         log(f"[bound] {k['name']}: {k['ms']:.4f} ms on the card, bound "
             f"{k['bound_ms']:.5f} ms by {k['bound_by']} "

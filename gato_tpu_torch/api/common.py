@@ -83,13 +83,14 @@ def rk4_step(model: RobotModel, x, u, dt: float, f_ext_world=None,
     `substeps` sub-intervals (common.py:49-91), optionally under a constant
     world-frame wrench f_ext_world (6,) = [force; torque] at the EE link.
 
-    Where the JAX package's kernel serves (a plant the rk4 kernel is built
-    for, indy7 or iiwa14, and no world wrench) this is the RK4 kernel
-    csrc/rk4.cu on a CUDA tensor and its plain version on a CPU tensor; a
-    failed launch raises. A world wrench, or a plant without generated CUDA
-    (the pendulum-augmented ones), takes the rigid-body algorithms on
-    either device, as the JAX package takes its XLA rk4_step outside any
-    Pallas kernel."""
+    Where the JAX package's kernel serves (no world wrench, and a plant the
+    rk4 kernel serves: indy7, iiwa14 and the pendulum-augmented plants
+    add_pendulum makes of them, ops/cuda_sim.py::has_cuda_kernel) this is
+    the RK4 kernel csrc/rk4.cu on a CUDA tensor and its plain version on a
+    CPU tensor; a failed build or launch raises. A world wrench, or a
+    plant no kernel serves (one loaded from another URDF), takes the
+    rigid-body algorithms on either device, as the JAX package takes its
+    XLA rk4_step outside any Pallas kernel."""
     if f_ext_world is None and has_cuda_kernel(model, "rk4"):
         return rk4_step_batched(model, x[None].contiguous(), u[None].contiguous(),
                                 dt, substeps=substeps)[0]

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda_sim import has_cuda_kernel
-from ..robots.model import RobotModel
-from ..robots.urdf import spatial_inertia
+from ..robots.model import RobotModel, register_parsed
+from ..robots.urdf import ParsedRobot, spatial_inertia
 from .common import rk4_step, world_wrench_to_ee_frame
 from .config import DEFAULT_SOLVER_PARAMS
 from .force_estimator import ForceEstimator
@@ -64,7 +64,13 @@ def add_pendulum(model: RobotModel, mass=15.0, length=0.3):
     mpc_controller.py:340-359; a simulation model only, the solver keeps
     the robot). A small armature inertia on the massless gimbal links keeps
     the mass matrix nonsingular at gimbal lock, which the reference's
-    spherical joint does not have."""
+    spherical joint does not have.
+
+    The augmented plant's constants are registered under its key, as the
+    JAX package registers them (gato_tpu/api/mpc.py:72-83): the channel
+    trace (the rk4 kernel's plain version) and the code generator read
+    them there, and the rk4 kernel's library for the plant is generated
+    from them (ops/cuda_sim.py::require_cuda_robot)."""
     eye = np.eye(3)
     bob = spatial_inertia(mass, np.array([0.0, 0.0, -length]), np.diag([1e-3] * 3))
     armature = np.zeros((6, 6))
@@ -74,7 +80,7 @@ def add_pendulum(model: RobotModel, mass=15.0, length=0.3):
     def cat(a, b):
         return torch.cat([a, torch.as_tensor(np.asarray(b), dtype=a.dtype, device=a.device)])
 
-    return replace(
+    aug = replace(
         model,
         R_tree=cat(model.R_tree, np.tile(eye, (3, 1, 1))),
         p_tree=cat(model.p_tree, np.zeros((3, 3))),
@@ -85,6 +91,16 @@ def add_pendulum(model: RobotModel, mass=15.0, length=0.3):
         effort_limits=cat(model.effort_limits, wide),
         key=f"{model.key}+pendulum(m={mass},l={length})",
         name=f"{model.name}+pendulum")
+
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    register_parsed(aug.key, ParsedRobot(
+        name=aug.key, nq=aug.nq, joint_names=[], R_tree=f64(aug.R_tree),
+        p_tree=f64(aug.p_tree), axis=f64(aug.axis), inertia=f64(aug.inertia),
+        joint_limits=f64(aug.joint_limits), velocity_limits=f64(aug.velocity_limits),
+        effort_limits=f64(aug.effort_limits), R_ee=f64(aug.R_ee), p_ee=f64(aug.p_ee)))
+    return aug
 
 
 class MPC_GATO:
@@ -151,9 +167,9 @@ class MPC_GATO:
         self._sim_fext = (self._tensor(self.constant_f_ext_world)
                           if np.any(self.constant_f_ext_world) else None)
         # on the card, a plant step that takes the rigid-body algorithms (a
-        # world wrench, or a plant without generated CUDA) is replayed from
-        # a CUDA graph per (substeps, step length); the RK4 kernel is one
-        # launch and needs none
+        # world wrench, or a plant the rk4 kernel does not serve) is
+        # replayed from a CUDA graph per (substeps, step length); the RK4
+        # kernel is one launch and needs none
         self._graphs = ({} if self.device.type == "cuda" and (
             self._sim_fext is not None or not has_cuda_kernel(self.sim_model, "rk4"))
             else None)

@@ -26,14 +26,13 @@ inputs, after it its outputs into (n_steps, ...) tensors. The solve is
 solve_batched with the exit kept on the device (bsqp_iter, max_sqp_iters
 launches a cycle at N <= 128). The plant step follows the JAX package's TPU
 branch: rk4_step_batched (csrc/rk4.cu on the card) over sim_substeps in one
-launch, with the estimator loop's EE-frame wrench, for a plant the
-kernel is built for (indy7, iiwa14). A plant without generated CUDA
-dynamics (the pendulum-augmented indy7 and iiwa14) steps on the
-rigid-body algorithms (api/common.py::_rk4_algorithms), as MPC_GATO's
-plant does, inside the same graph (ROADMAP Queue 1 item 2: a generated
-fd for the pendulum plant). The predictions that score the lanes follow the
-JAX code: the solver's integrator (ops/integrators.py::sim_step) or RK4 on
-the rigid-body algorithms (the JAX package's _rk4).
+launch, with the estimator loop's EE-frame wrench, for every plant the
+kernel serves: indy7, iiwa14 and the pendulum-augmented plants add_pendulum
+makes of them, whose library is generated and built at the first call,
+in the warm-up cycle before the capture. The predictions that score the
+lanes follow the JAX code: the solver's integrator
+(ops/integrators.py::sim_step) or RK4 on the rigid-body algorithms (the
+JAX package's _rk4, outside any Pallas kernel).
 
 `graph=False` runs the same cycles eagerly (the CPU's only mode).
 `last_capture` describes the last graph: "launches", the kernel launches
@@ -137,8 +136,12 @@ def _draws(uniforms, n_steps, dtype, device):
 
 def _plant_step(sim_model, x, u, control_dt, substeps, f_ext=None):
     """sim_substeps RK4 substeps of the plant over control_dt: the rk4
-    kernel for a plant with generated CUDA dynamics (its plain version on
-    the CPU), else the rigid-body algorithms. f_ext: EE-frame wrench (6,)."""
+    kernel for a plant it serves (indy7, iiwa14 and their pendulum plants;
+    its plain version on the CPU), as the JAX package's TPU branch. The
+    rigid-body algorithms only for a plant loaded from another URDF path,
+    which the JAX package's TPU branch would trace into its kernel and the
+    port builds no library for (ROADMAP Queue 2). A failed build or launch
+    raises. f_ext: EE-frame wrench (6,)."""
     if has_cuda_kernel(sim_model, "rk4"):
         fe = None if f_ext is None else f_ext[None].contiguous()
         return rk4_step_batched(sim_model, x[None].contiguous(), u[None].contiguous(),

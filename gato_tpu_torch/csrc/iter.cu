@@ -10,10 +10,11 @@
 // the step_ok scrub, the merit (csrc/merit.cu) and the line search follow
 // on the host's route (ops/cuda_solve.py::sqp_iter_fused), as the JAX
 // package's after_solve follows its kernel. The plain PyTorch version is
-// ops/cuda_iter.py::sqp_iter_core_reference.
+// ops/cuda_iter.py::sqp_iter_core_reference. It is compiled once per plant
+// (csrc/robot.cuh), for indy7 and iiwa14: entry points gato_iter_<plant>.
 //
 // Bound: as bsqp_iter's phases A-E. Up to N = 64 the PCG loop reads the
-// four 12x12 blocks of each knot from shared memory, G groups of threads
+// four NX x NX blocks of each knot from shared memory, G groups of threads
 // sharing a knot's rows, so its traffic stays on the SM, and what bounds
 // the kernel is phases A-C + E: the registers of the generated knot_kkt
 // (it spills), at the residency that shared memory leaves (2 blocks per SM

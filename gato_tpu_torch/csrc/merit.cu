@@ -1,6 +1,9 @@
 // The merit of every line-search candidate X + a dZX, U + a dZU over the
 // (problem, alpha) pairs of a batch, one launch.
 //
+// Compiled once per plant (csrc/robot.cuh), for indy7 and iiwa14: entry
+// points gato_merit_<plant>.
+//
 // Replaces gato_tpu/ops/pallas_merit.py::_merit_knot_kernel (as wrapped by
 // merit_alphas_batched_pallas), the merit sweep of the JAX package's staged
 // and fused-iteration routes. A knot's candidate (and the next knot's state)
@@ -40,7 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "block_ops.cuh"
-#include "generated/indy7.cuh"
+#include "robot.cuh"
 
 namespace gato {
 
@@ -71,7 +74,7 @@ struct MeritArgs {
 
 namespace {
 
-namespace robot = gato::indy7;
+namespace robot = gato::robot;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
 constexpr int NU = NQ;
@@ -168,7 +171,7 @@ extern "C" int gato_merit_blocks_per_sm(int variant) {
 
 // Launch a variant (1: warps, 0: one). A launch that the card refuses
 // returns its error; nothing falls back.
-extern "C" int gato_merit_indy7(const gato::MeritArgs* args, int variant, void* stream) {
+extern "C" int GATO_ENTRY(gato_merit)(const gato::MeritArgs* args, int variant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int pairs = args->B * args->A;
   if (variant == 1) {

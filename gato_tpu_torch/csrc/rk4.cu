@@ -1,7 +1,9 @@
 // RK4 plant step: x (B, 2 NQ), u (B, NQ) and an optional EE-frame wrench
 // (B, 6) -> x after `substeps` RK4 steps of h = dt / substeps. Compiled
-// once per plant (csrc/robot.cuh), for indy7 (NQ = 6) and iiwa14 (NQ = 7):
-// entry points gato_rk4_<plant>.
+// once per plant (csrc/robot.cuh), for indy7 (NQ = 6) and iiwa14 (NQ = 7),
+// and for the pendulum-augmented plants of add_pendulum (NQ = 9, 10), whose
+// header is generated at first use into the build directory under a slug
+// that hashes their constants: entry points gato_rk4_<plant>.
 //
 // Replaces gato_tpu/ops/pallas_sim.py::_rk4_kernel (body rk4_channels). The
 // JAX package runs it at B = 1 (the MPC loop's plant, the rollouts' x[None]

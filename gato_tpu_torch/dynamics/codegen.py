@@ -44,6 +44,13 @@ depth (the longest chain of operations from its inputs), which
 call count as one operation; a negation counts as none, since it compiles
 into its user's operand.
 
+A plant whose constants are registered at run time rather than read from
+a committed URDF (api/mpc.py::add_pendulum's pendulum-augmented plants)
+gets a header of its own at first use, `generate_plant`: NQ, NX, fd and
+fd's three parts, which is all csrc/rk4.cu calls, in a namespace named by
+`plant_slug` (the plant's name and a hash of its constants). _build.py
+writes it under the build directory, never into csrc/generated/.
+
 The cost weights `w` (CostParams order), dt and the tracking weight are
 runtime arguments; only the robot constants and limits are folded.
 `GATO_HD` is `__host__ __device__` under nvcc and empty otherwise, so the
@@ -54,9 +61,11 @@ header also compiles as host C++ (tests/test_torch_codegen.py).
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 
+import numpy as np
 import torch
 
 from ..ops.cost import CostParams
@@ -64,7 +73,7 @@ from ..ops.kkt_fast import (ab_channels, cost_channels, defect_channels,
                              dqdd_channels, dual_id_columns,
                              fd_primal_channels, kkt_knot_channels_structured)
 from ..ops.merit_fast import _get_cd, _knot_parts
-from ..robots.model import load_robot
+from ..robots.model import get_parsed, load_robot
 from . import mathshim as ms
 from .channelized import chsub
 
@@ -460,12 +469,7 @@ def generate(robot: str) -> str:
             funcs.append(_gen_knot_ab(cols, dirs, [c for c in range(nq) if c % g == p],
                                       nq, f"knot_ab_g{g}_p{p}"))
             groups_parts.append((g, p))
-    for sig, body, (ops, depth) in funcs:
-        tmpl = "typename T, typename O" if " O " in sig else "typename T"
-        parts += ["", f"// {sig[:sig.index('(')]}: {ops} operations, dependency depth {depth}",
-                  f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
-        parts += body
-        parts.append("}")
+    parts += _render(funcs)
     if groups_parts:
         parts += [""] + _dispatch(
             "knot_dual", "q, qd, qdd, fe, dID",
@@ -474,6 +478,62 @@ def generate(robot: str) -> str:
             "knot_ab", "Minv, dID, dt, A, B",
             "const T* Minv, const T* dID, T dt, O A, O B", groups_parts)
     parts += ["", f"}}}}  // namespace gato::{robot}", ""]
+    return "\n".join(parts)
+
+
+def _render(funcs):
+    """Header lines of generated functions, each under its operations and
+    dependency depth."""
+    parts = []
+    for sig, body, (ops, depth) in funcs:
+        tmpl = "typename T, typename O" if " O " in sig else "typename T"
+        parts += ["", f"// {sig[:sig.index('(')]}: {ops} operations, dependency depth {depth}",
+                  f"template <{tmpl}>", f"GATO_HD inline void {sig} {{"]
+        parts += body
+        parts.append("}")
+    return parts
+
+
+def plant_slug(name: str, key: str) -> str:
+    """A C identifier for the plant registered under `key`: its name with
+    every other character an underscore, then a hash of its constants (the
+    tree, the inertias, the limits, the EE offset), so that two plants of
+    one name with other constants (add_pendulum's mass or length) never
+    share a header, a namespace or a library."""
+    p = get_parsed(key)
+    h = hashlib.sha256(str(p.nq).encode())
+    for a in (p.R_tree, p.p_tree, p.axis, p.inertia, p.joint_limits,
+              p.velocity_limits, p.effort_limits, p.R_ee, p.p_ee):
+        h.update(np.ascontiguousarray(a, np.float64).tobytes())
+    stem = re.sub(r"\W", "_", name)
+    return f"{stem}_{h.hexdigest()[:12]}"
+
+
+def generate_plant(key: str, namespace: str) -> str:
+    """The header of a plant whose constants are registered under `key`
+    rather than read from a committed URDF (api/mpc.py::add_pendulum's
+    pendulum-augmented plants), in namespace gato::<namespace>: NQ, NX and
+    only what csrc/rk4.cu calls (fd, fd_bias, fd_crba, fd_solve). It is
+    written under the build directory at first use (_build.py) and
+    includes gato_math.cuh from csrc/ by the include path."""
+    cd = _get_cd(key)
+    nq = cd.nq
+    parts = [
+        f"// Generated by gato_tpu_torch.dynamics.codegen.generate_plant from a "
+        f"registered plant ({nq} joints). Do not edit.",
+        "// Straight-line forward dynamics, whole and in csrc/rk4.cu's parts, traced "
+        "from gato_tpu_torch/dynamics/channelized.py with the plant constants folded.",
+        "#pragma once",
+        '#include "gato_math.cuh"',
+        "",
+        f"namespace gato {{ namespace {namespace} {{",
+        "",
+        f"constexpr int NQ = {nq};",
+        f"constexpr int NX = {2 * nq};",
+    ]
+    parts += _render([_gen_fd(cd, nq), _gen_fd_bias(cd, nq), _gen_fd_crba(cd, nq),
+                      _gen_fd_solve(cd, nq)])
+    parts += ["", f"}}}}  // namespace gato::{namespace}", ""]
     return "\n".join(parts)
 
 

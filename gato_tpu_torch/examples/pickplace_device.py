@@ -6,27 +6,36 @@ iiwa14 is the solver's plant; the simulated plant is iiwa14 with a 15 kg
 solver does not see. The five PICKPLACE_DEFAULT_GOALS come in turn, each
 reached (EE within 5 cm, |qd|_1 < 1) or timed out after 5 s; the sphere
 estimator's wrench hypotheses fill the batch, scored each cycle by RK4 at
-the plant's cadence (score_substeps=2). Every cycle (the plant step, the
-goal bookkeeping, the hypotheses, the solve with PICKPLACE_SOLVER_PARAMS'
-five SQP iterations, the scoring and the estimator) is one CUDA graph
-replay of api/rollout.py::closed_loop_rollout_goals: five bsqp_iter
-launches a cycle, the pendulum plant on the rigid-body algorithms.
+the plant's cadence (score_substeps=2, on the rigid-body algorithms, as
+the JAX package scores them outside any Pallas kernel). Every cycle (the
+plant step, the goal bookkeeping, the hypotheses, the solve with
+PICKPLACE_SOLVER_PARAMS' five SQP iterations, the scoring and the
+estimator) is one CUDA graph replay of
+api/rollout.py::closed_loop_rollout_goals: five bsqp_iter launches and
+one rk4 launch a cycle, the pendulum plant on the rk4 kernel built for it
+(its header generated from the plant's constants at the first call).
 
 Defaults are main_device's: N=32, dt=0.03125 (a 1 s horizon), control_dt
 2 ms, batch sizes 1, 8, 32 and 128, ceil(5 goals x 5 s / 2 ms) + 2 =
-12,502 cycles each, the estimator's draws from a seed. The outcomes go to
-a JSON file named for the card (PICKPLACE_RESULTS_<card>.json unless
---out says otherwise), with the card's name and power limit beside them.
+12,502 cycles each, the estimator's draws from seed 0. The reference
+notebook's own working point is --N 16 --dt 0.01. With several --seeds each
+batch size past 3 (the ones with an estimator) runs once a seed and its
+outcomes are summed up as the JAX package's sweeps are (min, median, max
+goals reached). Rows go into a JSON file named for the card
+(PICKPLACE_RESULTS_<card>.json unless --out says otherwise) under the JAX
+package's record keys (N<N>_B<B>[_dt<dt>][_seed_sweep]), merged into what
+the file holds, with the card's name and power limit beside them.
 
     python -m gato_tpu_torch.examples.pickplace_device
-    python -m gato_tpu_torch.examples.pickplace_device --batch-sizes 128 --out PATH
+    python -m gato_tpu_torch.examples.pickplace_device --N 16 --dt 0.01 \
+        --batch-sizes 32 128 --seeds 0 1 2 3 --out PATH
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
+import os
 import re
 import subprocess
 import time
@@ -112,7 +121,11 @@ def card_line() -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch-sizes", type=int, nargs="+", default=list(BATCH_SIZES))
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--N", type=int, default=32, help="horizon knots (the notebook's: 16)")
+    ap.add_argument("--dt", type=float, default=0.03125,
+                    help="solver discretization in s (the notebook's: 0.01)")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0],
+                    help="the estimator's seeds, each a run of every batch size past 3")
     ap.add_argument("--out", help="the JSON file (default PICKPLACE_RESULTS_<card>.json)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -120,28 +133,50 @@ def main(argv=None):
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     out = args.out or "PICKPLACE_RESULTS_" + re.sub(r"\W+", "_", kind).strip("_") + ".json"
-    results = {}
+    rec = {}
+    if os.path.exists(out):
+        with open(out) as f:
+            rec = json.load(f)
     for B in args.batch_sizes:
-        t0 = time.perf_counter()
-        row, _ = run(B, seed=args.seed)
-        torch.cuda.synchronize()
-        ev = rollout.last_capture["events"]
-        row["ms_per_cycle"] = round(ev[0].elapsed_time(ev[1]) / row["cycles"], 4)
-        row["wall_s"] = round(time.perf_counter() - t0, 1)
-        results[str(B)] = row
-        print(f"B={B:4d}: {row['goals_reached']}/{len(row['goal_outcomes'])} goals "
-              f"{row['goal_outcomes']} at {row['goal_reached_times']} s, "
-              f"{row['ms_per_cycle']} ms a cycle ({card})", flush=True)
-    rec = {"meta": {
-        "workload": ("iiwa14 + 15 kg pendulum payload (the plant only), the 5-goal "
-                     "pick-and-place sequence, PICKPLACE_SOLVER_PARAMS (5 SQP iterations), "
-                     "N=32, dt 0.03125, control_dt 0.002, the sphere estimator's "
-                     "hypotheses scored by RK4 at the plant's cadence (score_substeps=2); "
-                     "examples/pickplace.py::main_device on gato_tpu_torch"),
+        seeds = args.seeds if B > 3 else args.seeds[:1]
+        rows = []
+        for seed in seeds:
+            t0 = time.perf_counter()
+            row, _ = run(B, N=args.N, dt=args.dt, seed=seed)
+            torch.cuda.synchronize()
+            ev = rollout.last_capture["events"]
+            row.update(N=args.N, dt=args.dt, card=card,
+                       ms_per_cycle=round(ev[0].elapsed_time(ev[1]) / row["cycles"], 4),
+                       wall_s=round(time.perf_counter() - t0, 1))
+            rows.append(row)
+            print(f"N={args.N} dt={args.dt:g} B={B:4d} seed {seed}: {row['goals_reached']}/"
+                  f"{len(row['goal_outcomes'])} goals {row['goal_outcomes']} at "
+                  f"{row['goal_reached_times']} s, {row['ms_per_cycle']} ms a cycle ({card})",
+                  flush=True)
+        # the JAX package's record key (examples/pickplace.py::main_device)
+        key = f"N{args.N}_B{B}" + ("" if args.dt == 0.03125 else f"_dt{args.dt:g}")
+        rec[key] = rows[0]
+        if len(rows) > 1:
+            reached = [r["goals_reached"] for r in rows]
+            gs = sorted(reached)
+            rec[f"{key}_seed_sweep"] = {
+                "seeds": seeds, "goals_reached_per_seed": reached, "min": gs[0],
+                "median": gs[len(gs) // 2], "max": gs[-1], "N": args.N, "dt": args.dt,
+                "rows": rows}
+            print(f"N={args.N} dt={args.dt:g} B={B:4d} sweep over seeds {seeds}: goals "
+                  f"min/median/max {gs[0]}/{gs[len(gs) // 2]}/{gs[-1]}", flush=True)
+    rec["meta"] = {
+        "workload": ("iiwa14 + 15 kg pendulum payload (the plant only, stepped on the rk4 "
+                     "kernel), the 5-goal pick-and-place sequence, PICKPLACE_SOLVER_PARAMS "
+                     "(5 SQP iterations), control_dt 0.002, the sphere estimator's "
+                     "hypotheses scored by RK4 on the rigid-body algorithms at the "
+                     "plant's cadence (score_substeps=2); each row carries its N, dt, "
+                     "seed and card; examples/pickplace.py::main_device on gato_tpu_torch, "
+                     "under the JAX package's record keys (PICKPLACE_RESULTS.json)"),
         "card": card, "device": kind, "torch": torch.__version__,
-        "cuda": torch.version.cuda}, "results": results}
+        "cuda": torch.version.cuda}
     with open(out, "w") as f:
-        json.dump(rec, f, indent=1)
+        json.dump(rec, f, indent=1, sort_keys=True)
     print(f"wrote {out}")
     return 0
 

@@ -21,9 +21,9 @@ Port of gato_tpu/ops/pallas_iter.py:
                            launches csrc/iter.cu or csrc/bsqp_iter.cu.
 
 Like the TPU kernel, the core does not scrub non-finite steps: the caller
-does (ops/cuda_solve.py::sqp_iter_fused). bsqp_iter is built for indy7
-and iiwa14, iter for indy7 (_build.KERNELS); the sizes follow the plant's
-nx and nu (nx = 2 nu).
+does (ops/cuda_solve.py::sqp_iter_fused). Both kernels are built for indy7
+and iiwa14 (_build.KERNELS); the sizes follow the plant's nx and nu
+(nx = 2 nu).
 """
 
 from __future__ import annotations
@@ -228,12 +228,13 @@ def sqp_iter_core_cuda(model: RobotModel, cp: CostParams, X, U, x_s, ref,
 
     The kernel replaces gato_tpu/ops/pallas_iter.py::_iter_kernel with
     phases A-E of csrc/bsqp_iter.cu (csrc/sqp_iter.cuh), built for indy7
-    (another plant raises). Up to N = 64 the
-    four threads of a knot share phase A's KKT in stages and the PCG loop
-    reads each knot's four 12x12 blocks from shared memory, G threads per
-    knot, so its traffic stays on the SM; past that one thread per knot
-    runs the whole generated KKT code (it spills) and the loop re-reads the
-    blocks from an element-major global scratch."""
+    and iiwa14 (another plant raises). Up to N = 64 the PCG loop reads each
+    knot's four nx x nx blocks from shared memory, G threads per knot
+    (iteration_variant), so its traffic stays on the SM, and indy7's four
+    threads of a knot share phase A's KKT in stages; past N = 64, and for
+    iiwa14 at every N, one thread per knot runs the whole generated KKT
+    code (it spills), and past N = 64 the loop re-reads the blocks from an
+    element-major global scratch."""
     if X.device.type == "cpu":
         return sqp_iter_core_reference(model, cp, X, U, x_s, ref, f_ext, lam,
                                        rho, pcg_tol, skip, dt, max_pcg_iters,

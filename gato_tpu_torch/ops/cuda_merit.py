@@ -45,10 +45,10 @@ def _variant_code(variant) -> int:
     return int(variant == "warps")
 
 
-def blocks_per_sm(variant) -> int:
-    """Resident CTAs per SM of a variant, as the library reports them
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    fn = load_library("merit").gato_merit_blocks_per_sm
+def blocks_per_sm(variant, robot: str = "indy7") -> int:
+    """Resident CTAs per SM of a variant built for `robot`, as the library
+    reports them (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = load_library("merit", robot).gato_merit_blocks_per_sm
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(_variant_code(variant))
@@ -64,8 +64,8 @@ def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
 
     CUDA kernel: csrc/merit.cu, replacing gato_tpu/ops/pallas_merit.py::
     _merit_knot_kernel, the candidates formed in registers, a thread a
-    knot. Bound by the generated straight-line knot_merit of every
-    (problem, alpha, knot). By default (DEFAULT, "warps") a CTA holds
+    knot. Built for indy7 and iiwa14 (another plant raises). Bound by the
+    generated straight-line knot_merit of every (problem, alpha, knot). By default (DEFAULT, "warps") a CTA holds
     WARPS_PER_CTA pairs, a warp each; `variant="one"` forces the earlier
     kernel (a block a pair), for measurements only."""
     if X.device.type == "cpu":
@@ -73,7 +73,7 @@ def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
                                     f_ext, mu, dt, alphas, integrator_type)
     variant = variant or DEFAULT
     code = _variant_code(variant)
-    require_cuda_robot(model, "merit")
+    plant = require_cuda_robot(model, "merit")
     if integrator_type != 2:
         raise NotImplementedError("the CUDA kernels are generated for the "
                                   "trapezoidal integrator (integrator_type=2)")
@@ -91,8 +91,7 @@ def merit_alphas_batched_cuda(model: RobotModel, cp: CostParams, X, U, dZX,
     if ref.shape[-1] < 3:
         raise ValueError("ref needs the EE xyz in its first 3 columns")
     out = torch.empty(B, A, dtype=torch.float32, device=X.device)
-    lib = load_library("merit")
-    fn = lib.gato_merit_indy7
+    fn = getattr(load_library("merit", plant), f"gato_merit_{plant}")
     fn.argtypes = [ctypes.POINTER(_MeritArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     args = _MeritArgs(*[t.data_ptr() for t in (

@@ -9,19 +9,24 @@ csrc/rk4.cu, on a CPU tensor it runs the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .._build import KERNELS, load_library
+from .._build import KERNELS, load_library, register_plant
 from ..dynamics import mathshim as ms
 from ..robots.model import RobotModel
 from .merit_fast import _get_cd
 
-# the plants each kernel is generated and built for, {kernel: plants}:
-# bsqp_iter and rk4 for indy7 and iiwa14, iter, kkt, merit and pcg for
-# indy7 (_build.KERNELS)
+# the plants with a committed header that each kernel is built for,
+# {kernel: plants}: bsqp_iter, iter, merit and rk4 for indy7 and iiwa14,
+# kkt and pcg for indy7 (_build.KERNELS)
 CUDA_ROBOTS = KERNELS
-ROADMAP_ITEM = "ROADMAP Queue 1 item 2, code generation for the other plants"
+# the kernels that also serve a plant built by api/mpc.py::add_pendulum from
+# one of their plants, from a header generated at first use
+# (require_cuda_robot)
+PENDULUM_KERNELS = ("rk4",)
+ROADMAP_ITEM = "ROADMAP Queue 2, the plants still to port"
 # the rk4 kernel's variants (csrc/rk4.cu): "one", the default, one thread
 # per problem; "crba", only when forced, spreads each forward dynamics call
 # over two warps (CRBA beside the RNEA bias, fd's own expressions): about
@@ -82,19 +87,48 @@ def check_cuda(name, t, shape):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _is_pendulum_plant(model: RobotModel, kernel: str) -> bool:
+    """Whether add_pendulum built `model` from one of `kernel`'s plants (its
+    name "<base>+pendulum") and `kernel` serves such plants."""
+    base, _, rest = model.name.partition("+")
+    return kernel in PENDULUM_KERNELS and rest == "pendulum" and base in CUDA_ROBOTS[kernel]
+
+
 def has_cuda_kernel(model: RobotModel, kernel: str) -> bool:
-    """Whether `kernel` is built for the plant `model` (CUDA_ROBOTS)."""
-    return model.name in CUDA_ROBOTS[kernel]
+    """Whether `kernel` serves the plant `model`: a plant of its row in
+    CUDA_ROBOTS, or for rk4 also a pendulum-augmented one of them."""
+    return model.name in CUDA_ROBOTS[kernel] or _is_pendulum_plant(model, kernel)
 
 
-def require_cuda_robot(model: RobotModel, kernel: str):
-    """Raise NotImplementedError, naming the kernel and the ROADMAP item,
-    for a plant that `kernel` is not built for: iiwa14 on iter, kkt, merit
-    and pcg, the pendulum-augmented plants on every kernel."""
-    if not has_cuda_kernel(model, kernel):
-        raise NotImplementedError(
-            f"the {kernel} kernel is not built for {model.name!r}, only for "
-            f"{CUDA_ROBOTS[kernel]} ({ROADMAP_ITEM})")
+@functools.lru_cache(maxsize=None)
+def _generated_plant(name: str, key: str) -> str:
+    """Generate the header of the plant registered under `key` and register
+    it with _build (once a process): returns its slug, which names the
+    header, its namespace, its libraries and their entry points."""
+    from ..dynamics.codegen import generate_plant, plant_slug
+
+    slug = plant_slug(name, key)
+    register_plant(slug, generate_plant(key, slug), PENDULUM_KERNELS)
+    return slug
+
+
+def require_cuda_robot(model: RobotModel, kernel: str) -> str:
+    """The plant whose `kernel` library serves `model`: its name for a plant
+    of CUDA_ROBOTS; for a pendulum-augmented one (rk4) the slug of its
+    generated header, which hashes the registered constants, so another
+    mass or length gets a library of its own. Raises NotImplementedError,
+    naming the kernel and the ROADMAP item, for a plant that `kernel` does
+    not serve: iiwa14 on kkt and pcg, the pendulum-augmented plants on
+    every kernel but rk4, any other plant (a URDF path) on every kernel."""
+    if model.name in CUDA_ROBOTS[kernel]:
+        return model.name
+    if _is_pendulum_plant(model, kernel):
+        return _generated_plant(model.name, model.key)
+    raise NotImplementedError(
+        f"the {kernel} kernel is not built for {model.name!r}, only for "
+        f"{CUDA_ROBOTS[kernel]}"
+        + (" and their pendulum-augmented plants" if kernel in PENDULUM_KERNELS else "")
+        + f" ({ROADMAP_ITEM})")
 
 
 def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
@@ -103,8 +137,9 @@ def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
     f_ext (B, 6) -> (B, nx).
 
     CUDA kernel: csrc/rk4.cu, replacing gato_tpu/ops/pallas_sim.py::
-    _rk4_kernel, built for indy7 and iiwa14 (CUDA_ROBOTS; another plant
-    raises). By default (DEFAULT, "one") a thread per problem runs
+    _rk4_kernel, built for indy7, iiwa14 and the plants add_pendulum makes
+    of them (require_cuda_robot: their header generated and their library built at
+    the first call; another plant raises). By default (DEFAULT, "one") a thread per problem runs
     the 4 x substeps forward dynamics calls in series. `variant="crba"`
     forces the two-warp kernel (a CTA per problem: the mass matrix by CRBA
     beside the RNEA bias, then the Cholesky solve on every thread), whose
@@ -114,14 +149,14 @@ def rk4_step_batched(model: RobotModel, x, u, dt: float, f_ext=None,
     variant = variant or DEFAULT
     if variant not in VARIANTS:
         raise ValueError(f"rk4 kernel variant {variant!r} is not compiled; one of {VARIANTS}")
-    require_cuda_robot(model, "rk4")
+    plant = require_cuda_robot(model, "rk4")
     B, nx = x.shape
     check_cuda("x", x, (B, model.nx))
     check_cuda("u", u, (B, model.nu))
     if f_ext is not None:
         check_cuda("f_ext", f_ext, (B, 6))
     out = torch.empty_like(x)
-    fn = getattr(load_library("rk4", model.name), f"gato_rk4_{model.name}")
+    fn = getattr(load_library("rk4", plant), f"gato_rk4_{plant}")
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]

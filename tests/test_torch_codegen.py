@@ -7,8 +7,13 @@ composed as csrc/rk4.cu's crba variant composes them (fd_crba, fd_bias,
 fd_solve), compute fd; and indy7's staged functions (knot_dyn, knot_dual,
 knot_ab, knot_defect, knot_cost; iiwa14's header has none), composed as
 csrc/kkt.cu composes them, compute knot_kkt's outputs for every split of
-the tangent directions. Each plant's shim instantiates only what its tests
-call; the two compile at once, at -O0: the test runs each function a few
+the tangent directions. The header that a pendulum-augmented plant gets at
+first use (codegen.generate_plant, from the constants add_pendulum
+registers: NQ, NX, fd and fd's parts) computes fd as the plain trace does,
+whole and composed as the crba variant composes it, to rtol 1e-10, for the
+two default plants (15 kg at 0.3 m on indy7 and iiwa14) and iiwa14 with
+10 kg at 0.5 m. Each plant's shim instantiates only what its tests
+call; all compile at once, at -O0: the test runs each function a few
 times, and g++ takes a quarter of -O1's time over 50k lines of
 straight-line code.
 """
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from gato_tpu_torch.api.mpc import add_pendulum
 from gato_tpu_torch.dynamics import codegen
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.ops.cost import CostParams
@@ -36,8 +42,12 @@ M = 7  # random work items
 ROBOTS = codegen.ROBOTS
 NQS = {"indy7": 6, "iiwa14": 7}
 
-# fd, knot_kkt, knot_merit and the crba variant's composition of fd
-_SHIM = r"""
+# the pendulum plants whose generated header is compiled: (base, mass, length)
+PENDULUMS = (("indy7", 15.0, 0.3), ("iiwa14", 15.0, 0.3), ("iiwa14", 10.0, 0.5))
+
+# fd and the crba variant's composition of fd (every header), knot_kkt and
+# knot_merit (the committed ones)
+_FD_SHIM = r"""
 #include "generated/ROBOT.cuh"
 typedef double T;
 namespace R = gato::ROBOT;
@@ -45,6 +55,17 @@ extern "C" {
 void h_fd(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
   R::fd<T>(q, qd, u, fe, qdd);
 }
+// csrc/rk4.cu's crba variant on one thread: CRBA, the bias, the solve
+void h_fd_crba(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
+  T M[R::NQ * R::NQ], bias[R::NQ];
+  R::fd_crba<T, T*>(q, M);
+  R::fd_bias<T, T*>(q, qd, fe, bias);
+  R::fd_solve<T, T*>(M, u, bias, qdd);
+}
+}
+"""
+_SHIM = _FD_SHIM + r"""
+extern "C" {
 void h_kkt(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
            const T* fe, T dt, T w_track, const T* w, T* A, T* B, T* c, T* Q,
            T* qv, T* Rd, T* rv) {
@@ -53,13 +74,6 @@ void h_kkt(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
 void h_merit(const T* q, const T* qd, const T* u, const T* xn, const T* r3,
              const T* fe, T dt, T w_track, const T* w, T* out) {
   R::knot_merit<T, T*>(q, qd, u, xn, r3, fe, dt, w_track, w, out);
-}
-// csrc/rk4.cu's crba variant on one thread: CRBA, the bias, the solve
-void h_fd_crba(const T* q, const T* qd, const T* u, const T* fe, T* qdd) {
-  T M[R::NQ * R::NQ], bias[R::NQ];
-  R::fd_crba<T, T*>(q, M);
-  R::fd_bias<T, T*>(q, qd, fe, bias);
-  R::fd_solve<T, T*>(M, u, bias, qdd);
 }
 }
 """
@@ -110,24 +124,40 @@ def test_committed_header_is_generated_output():
             assert f.read() == codegen.generate(robot), robot
 
 
+def _pendulum(base, mass, length):
+    """(the float64 pendulum plant, its slug)."""
+    p = add_pendulum(load_robot(base, torch.float64, device="cpu"), mass=mass, length=length)
+    return p, codegen.plant_slug(p.name, p.key)
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """{robot: the shim's library}, the plants' shims compiled at once."""
+    """{robot or PENDULUMS entry: the shim's library}, every shim compiled
+    at once: the committed headers' from csrc/generated/, the pendulum
+    plants' from headers generated here (as _build.py writes them, under
+    generated/ of a directory on the include path, beside csrc/)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
     d = tmp_path_factory.mktemp("codegen")
     csrc = os.path.join(os.path.dirname(codegen.GENERATED_DIR))
+    (d / "generated").mkdir()
+    sources = {robot: _SHIM.replace("ROBOT", robot)
+               + (_STAGED_SHIM if codegen.KKT_SPLITS[robot] else "") for robot in ROBOTS}
+    for plant in PENDULUMS:
+        p, slug = _pendulum(*plant)
+        (d / "generated" / f"{slug}.cuh").write_text(codegen.generate_plant(p.key, slug))
+        sources[plant] = _FD_SHIM.replace("ROBOT", slug)
     procs = {}
-    for robot in ROBOTS:
-        src, lib = d / f"{robot}.cpp", d / f"lib{robot}.so"
-        src.write_text(_SHIM.replace("ROBOT", robot)
-                       + (_STAGED_SHIM if codegen.KKT_SPLITS[robot] else ""))
-        procs[robot] = (subprocess.Popen([gxx, "-O0", "-std=c++17", "-shared", "-fPIC",
-                                          "-I", csrc, "-o", str(lib), str(src)]), lib)
+    for i, (key, text) in enumerate(sources.items()):
+        src, lib = d / f"shim{i}.cpp", d / f"libshim{i}.so"
+        src.write_text(text)
+        procs[key] = (subprocess.Popen([gxx, "-O0", "-std=c++17", "-shared", "-fPIC",
+                                        "-I", str(d), "-I", csrc, "-o", str(lib),
+                                        str(src)]), lib)
     for proc, _ in procs.values():
         assert proc.wait(timeout=600) == 0
-    return {robot: ctypes.CDLL(str(lib)) for robot, (_, lib) in procs.items()}
+    return {key: ctypes.CDLL(str(lib)) for key, (_, lib) in procs.items()}
 
 
 def _ptr(a):
@@ -155,10 +185,16 @@ def test_generated_fd_matches_trace(host_libs):
         _fd_matches_trace(host_libs[robot], robot)
 
 
-def _fd_matches_trace(host_lib, robot):
-    NQ = NQS[robot]
+def test_generated_pendulum_fd_matches_trace(host_libs):
+    for plant in PENDULUMS:
+        p, _ = _pendulum(*plant)
+        _fd_matches_trace(host_libs[plant], p.name, p.key, p.nq)
+
+
+def _fd_matches_trace(host_lib, robot, key=None, NQ=None):
+    NQ = NQ or NQS[robot]
     x = _inputs(1, NQ)
-    cd = _get_cd(load_robot(robot, torch.float64, device="cpu").key)
+    cd = _get_cd(key or load_robot(robot, torch.float64, device="cpu").key)
     q = _cols(x["q"])
     ref = cd.fd([ms.cos(v) for v in q], [ms.sin(v) for v in q], _cols(x["qd"]),
                 _cols(x["u"]), f_ext=_cols(x["fe"]))

@@ -20,11 +20,12 @@ from gato_tpu.ops.merit_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_sim import rk4_channels as jax_rk4_channels
 from gato_tpu_torch.api.common import rk4_step
 from gato_tpu_torch.api.mpc import add_pendulum
-from gato_tpu_torch.ops.cuda_iter import sqp_iter_core_cuda
+from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import pcg_solve_batched_cuda
 from gato_tpu_torch.ops.cuda_sim import (CUDA_ROBOTS, require_cuda_robot,
                                          rk4_step_batched)
 from gato_tpu_torch.robots.model import load_robot
+from gato_tpu_torch.solver.bsqp import select_route
 from torch_port_helpers import jax_in_pieces, jit_per_sample, models, t64
 
 B, DT, SUBSTEPS = 5, 0.01, 2
@@ -74,56 +75,64 @@ def test_rk4_wrapper_takes_the_plain_path_only_on_cpu():
     """A tensor that is not on the CPU never falls back to the plain
     version: it is checked for the kernel and refused (here a 'meta'
     tensor), through the wrapper and through api.common.rk4_step, which
-    routes a plant with generated CUDA dynamics and no world wrench to the
-    kernel (indy7 and iiwa14); a plant without generated CUDA dynamics
-    (the pendulum-augmented iiwa14) is refused by the kernel wrapper."""
+    routes a plant the kernel serves and no world wrench to the kernel:
+    indy7, iiwa14 and the pendulum-augmented plants add_pendulum makes of
+    them (their header generated from the registered constants, no card
+    needed for that)."""
     for robot in ("indy7", "iiwa14"):
-        m = load_robot(robot, torch.float32, device="cpu")
-        x = torch.empty(2, m.nx, device="meta")
-        u = torch.empty(2, m.nu, device="meta")
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            rk4_step_batched(m, x, u, DT)
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            rk4_step(m, x[0], u[0], DT)
-    pend = add_pendulum(m, mass=15.0, length=0.3)
-    with pytest.raises(NotImplementedError, match="iiwa14\\+pendulum"):
-        require_cuda_robot(pend, "rk4")
+        base = load_robot(robot, torch.float32, device="cpu")
+        for m in (base, add_pendulum(base, mass=15.0, length=0.3)):
+            x = torch.empty(2, m.nx, device="meta")
+            u = torch.empty(2, m.nu, device="meta")
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                rk4_step_batched(m, x, u, DT)
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                rk4_step(m, x[0], u[0], DT)
 
 
 def test_each_kernel_names_its_plants():
-    """bsqp_iter and rk4 are built for indy7 and iiwa14, iter, kkt, merit
-    and pcg for indy7 alone: for iiwa14 those four raise
+    """bsqp_iter, iter, merit and rk4 are built for indy7 and iiwa14, kkt
+    and pcg for indy7 alone: for iiwa14 those two raise
     NotImplementedError naming the kernel and the ROADMAP item, through
-    require_cuda_robot and before any launch through the wrappers (the
-    iter kernel's on 'meta' tensors; pcg's, which sees no model, by the
-    state size), and so does every kernel for the pendulum-augmented
-    plant."""
+    require_cuda_robot and before any launch through the wrappers (pcg's,
+    which sees no model, by the state size), and so does every kernel but
+    rk4 for the pendulum-augmented plant; rk4 serves it from a library of
+    its own (require_cuda_robot names its generated plant). Routes "iter"
+    and "staged" of an iiwa14 solve past N = 128 and with iter_kernel="off"
+    reach kkt and raise there, before any launch."""
     assert CUDA_ROBOTS == {"rk4": ("indy7", "iiwa14"), "bsqp_iter": ("indy7", "iiwa14"),
-                           "iter": ("indy7",), "pcg": ("indy7",), "merit": ("indy7",),
-                           "kkt": ("indy7",)}
+                           "iter": ("indy7", "iiwa14"), "pcg": ("indy7",),
+                           "merit": ("indy7", "iiwa14"), "kkt": ("indy7",)}
+    indy7 = load_robot("indy7", torch.float32, device="cpu")
     iiwa = load_robot("iiwa14", torch.float32, device="cpu")
     pend = add_pendulum(iiwa, mass=15.0, length=0.3)
     for kernel in CUDA_ROBOTS:
-        require_cuda_robot(load_robot("indy7", torch.float32, device="cpu"), kernel)
-        with pytest.raises(NotImplementedError, match=f"{kernel} kernel.*ROADMAP Queue 1 item 2"):
-            require_cuda_robot(pend, kernel)
-        if kernel in ("bsqp_iter", "rk4"):
-            require_cuda_robot(iiwa, kernel)
+        assert require_cuda_robot(indy7, kernel) == "indy7"
+        if kernel == "rk4":
+            assert require_cuda_robot(pend, kernel).startswith("iiwa14_pendulum_")
         else:
             with pytest.raises(NotImplementedError,
+                               match=f"{kernel} kernel.*ROADMAP Queue 2"):
+                require_cuda_robot(pend, kernel)
+        if kernel in ("kkt", "pcg"):
+            with pytest.raises(NotImplementedError,
                                match=f"{kernel} kernel is not built for 'iiwa14'.*"
-                                     "ROADMAP Queue 1 item 2"):
+                                     "ROADMAP Queue 2"):
                 require_cuda_robot(iiwa, kernel)
+        else:
+            assert require_cuda_robot(iiwa, kernel) == "iiwa14"
     B, N = 2, 4
 
     def meta(*shape, dtype=torch.float32):
         return torch.empty(*shape, dtype=dtype, device="meta")
 
-    with pytest.raises(NotImplementedError, match="iter kernel"):
-        sqp_iter_core_cuda(iiwa, None, meta(B, N, 14), meta(B, N - 1, 7), meta(B, 14),
-                           meta(B, N, 6), meta(B, 6), meta(B, N, 14), meta(B), meta(B),
-                           meta(B, dtype=torch.bool), DT, 10)
-    with pytest.raises(NotImplementedError, match="pcg kernel.*nx=14.*ROADMAP Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="kkt kernel"):
+        setup_kkt_batched_cuda(iiwa, None, meta(B, N, 14), meta(B, N - 1, 7), meta(B, 14),
+                               meta(B, N, 6), meta(B, 6), DT)
+    with pytest.raises(NotImplementedError, match="pcg kernel.*nx=14.*ROADMAP Queue 2"):
         pcg_solve_batched_cuda(meta(B, N, 14, 14), meta(B, N - 1, 14, 14), meta(B, N, 14, 14),
                                meta(B, N - 1, 14, 14), meta(B, N, 14), meta(B, N, 14), meta(B),
                                10, meta(B, dtype=torch.bool))
+    assert [select_route("auto", "auto", n, True) for n in (128, 129)] == ["solve", "staged"]
+    assert select_route("off", "auto", 128, True) == "iter"
+    assert select_route("off", "off", 32, True) == "staged"

@@ -5,10 +5,12 @@ tests/test_pallas_solve.py (B=3, N=12), with that test's tolerances.
 Each test runs on the port's three routes (solver/bsqp.py::select_route:
 the whole-iteration kernel's, the fused-iteration and the staged one), which
 run their kernels' plain versions on the CPU. One XLA compile serves every
-case: the 3-iteration solve is compared output by output, and its first
-iteration's statistics are compared with the port's 1-iteration solve (the
-merit after one accepted step, the PCG count, the step and the warm-start
-merit).
+indy7 case: the 3-iteration solve is compared output by output, and its
+first iteration's statistics are compared with the port's 1-iteration solve
+(the merit after one accepted step, the PCG count, the step and the
+warm-start merit). The 3-iteration comparison also runs iiwa14 on the
+fused-iteration route (solve_kernel="off", the iter and merit kernels'
+plain versions; a second XLA compile, the solve for iiwa14).
 """
 
 import jax.numpy as jnp
@@ -26,17 +28,32 @@ from torch_port_helpers import DEFAULT_COST, costs, models
 B, N, DT, MAX_PCG = 3, 12, 0.01, 500
 # (solve_kernel, iter_kernel) of the routes "solve", "iter" and "staged"
 ROUTES = [("auto", "auto"), ("off", "auto"), ("off", "off")]
+# (plant, route) of the 3-iteration comparison
+CASES = [("indy7", g) for g in ROUTES] + [("iiwa14", ("off", "auto"))]
 
 
 @pytest.fixture(scope="module")
 def solved():
-    jm, tm = models("indy7")
+    """{plant: (the XLA solver's 3-iteration outputs, port(max_sqp_iters,
+    gates))}, each plant's solve compiled when a test first asks."""
+    cache = {}
+
+    def get(robot):
+        if robot not in cache:
+            cache[robot] = _solved(robot)
+        return cache[robot]
+    return get
+
+
+def _solved(robot):
+    jm, tm = models(robot)
+    nq = jm.nq
     jcp, tcp = costs(**DEFAULT_COST)
     rng = np.random.default_rng(7)
     a = dict(
-        X=rng.uniform(-0.3, 0.3, (B, N, 12)), U=rng.uniform(-5, 5, (B, N - 1, 6)),
-        x_s=rng.uniform(-0.3, 0.3, (B, 12)), ref=rng.uniform(-0.5, 0.5, (B, N, 6)),
-        f_ext=rng.uniform(-3, 3, (B, 6)), lam=rng.uniform(-0.1, 0.1, (B, N, 12)))
+        X=rng.uniform(-0.3, 0.3, (B, N, 2 * nq)), U=rng.uniform(-5, 5, (B, N - 1, nq)),
+        x_s=rng.uniform(-0.3, 0.3, (B, 2 * nq)), ref=rng.uniform(-0.5, 0.5, (B, N, 6)),
+        f_ext=rng.uniform(-3, 3, (B, 6)), lam=rng.uniform(-0.1, 0.1, (B, N, 2 * nq)))
     hp = JHyperParams.create(B, rho=0.01, mu=10.0, pcg_tol=1e-12,
                              dtype=jnp.float64)
     Xo, Uo, lam_o, hpo, stats = solve_batched_jit(
@@ -68,9 +85,9 @@ def solved():
     return xla, port
 
 
-@pytest.mark.parametrize("gates", ROUTES)
-def test_solve_matches_xla_solver_3_iterations(solved, gates):
-    xla, port = solved
+@pytest.mark.parametrize("robot,gates", CASES)
+def test_solve_matches_xla_solver_3_iterations(solved, robot, gates):
+    xla, port = solved(robot)
     p = {k: v.numpy() for k, v in port(3, gates).items()}
     np.testing.assert_allclose(p["X"], xla["X"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(p["U"], xla["U"], rtol=1e-6, atol=1e-6)
@@ -89,7 +106,7 @@ def test_solve_matches_xla_solver_3_iterations(solved, gates):
 
 @pytest.mark.parametrize("gates", ROUTES)
 def test_solve_1_iteration_matches_xla_first_iteration(solved, gates):
-    xla, port = solved
+    xla, port = solved("indy7")
     p = {k: v.numpy() for k, v in port(1, gates).items()}
     np.testing.assert_allclose(p["merit0"], xla["merit0"], rtol=1e-8)
     # one accepted step: the final merit is the first line search's merit
