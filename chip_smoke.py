@@ -43,8 +43,8 @@ cycle.
                 (ExperimentRunner at B = 1, 32, 128, 512). rk4's wrench
                 branch is held against its plain version first (`[compare]
                 rk4 ... with a wrench`);
-  second plant  iiwa14 (nq = 7), the kernels bsqp_iter, iter, merit and rk4
-                built for it, and rk4 for the pendulum plants (indy7 and
+  second plant  iiwa14 (nq = 7), every kernel built for it, and rk4 for
+                the pendulum plants (indy7 and
                 iiwa14 + 15 kg at 0.3 m, nq = 9 and 10: their headers
                 generated from the registered constants and built with
                 the other libraries; iiwa14_phases): `[iiwa14-kernels]`
@@ -53,17 +53,28 @@ cycle.
                 N=128, B=512; iter and merit at N=32 B=512 as indy7's; rk4
                 in both variants at B=1 and 512 with and without a wrench,
                 on each pendulum plant at B=1 and 128; each shared-layout
-                G timed; the staged route past N = 128 and with
-                iter_kernel="off" raises naming kkt), `[bench-iiwa14]` (the
-                fig-8 cycle at N=32 B=512, bench.py --plant iiwa14, on the
-                default route and on the fused-iteration route),
+                G timed), `[bench-iiwa14]` (the fig-8 cycle at N=32 B=512,
+                bench.py --plant iiwa14, on the default route and on the
+                fused-iteration route), `[iiwa14-staged]` (kkt and pcg held
+                and timed as indy7's at N=32 B=512 and N=256 B=64, pcg's
+                variants timed at iiwa14's cut points, the staged route at
+                both shapes launching kkt, pcg, merit and rk4 and nothing
+                else, N=256 tracking within 10 % of the plain route),
                 `[rollout-iiwa14]` (closed_loop_rollout toward a goal 8.8
                 cm away, held below 0.03 m) and `[rollout-goals-iiwa14]`
                 (examples/pickplace.py's device loop on the port,
                 gato_tpu_torch.examples.pickplace_device: iiwa14 + 15 kg
                 pendulum, five goals, 12,502 cycles at B=128, the plant on
                 rk4; outcomes printed, not held; the cycle split into its
-                parts).
+                parts);
+  fleet         `[fleet]`: the mixed indy7 + iiwa14 fleet through its
+                example (gato_tpu_torch.examples.mixed_fleet.main, B=8 each)
+                at N=8 (each member's bsqp_iter and rk4) and N=256 (each
+                member's kkt, pcg, merit and rk4: the staged route), the
+                launches of each member counted and held, every solve
+                finite, the fleet's cycle as one CUDA graph equal to the
+                eager cycles bit for bit (the report and the tracking
+                errors printed, not held).
 
 The pcg kernel comes in variants (layout, G, C): one CTA per problem with
 its blocks in shared memory, a thread-block cluster of C CTAs per problem,
@@ -77,8 +88,9 @@ with pcg in the variant N takes and in the global one, in turns, at both
 shapes.
 
 The kkt kernel comes in two variants (layout, G): staged, G = 2 threads
-per knot sharing the generated knot_kkt's stages, and the earlier
-one-thread kernel ("one", 1). Each variant's registers, spills, shared
+per knot sharing the generated knot_kkt's stages (indy7's default), and
+the earlier one-thread kernel ("one", 1; iiwa14's only variant, its header
+has no staged KKT). Each variant's registers, spills, shared
 memory and CTAs per SM print as `[variant] kkt` lines; both are held
 against the plain version and timed (`[kkt]` lines) at N=32 B=512 and
 N=256 B=64. Each route's cycle also runs in turns with a kernel forced
@@ -111,8 +123,8 @@ reads the N=32 tracking gate (its windows) from nearby warm-ups, and
 compares rk4's variants built with and without multiply-add fusion.
 
 It builds the six CUDA kernels from gato_tpu_torch/csrc/ for their plants
-(bsqp_iter, iter, merit and rk4 for indy7 and iiwa14, kkt and pcg for
-indy7, rk4 also for the two pendulum plants: one nvcc each, all at once),
+(every kernel for indy7 and iiwa14, rk4 also for the two pendulum plants:
+one nvcc each, all at once),
 holds each against its plain PyTorch version on the steady-state
 input (kkt, pcg and merit at N=256 too; bsqp_iter and iter also at N=64
 and 128, B=512, the shared layout's last N and the global layout, where
@@ -131,6 +143,8 @@ kernel's bound from this run's inputs.
     python3 chip_smoke.py --tracking-spread
     python3 chip_smoke.py --fusion-probe
     python3 chip_smoke.py --iiwa14       # the second plant's phases only
+    python3 chip_smoke.py --fleet        # the mixed fleet only
+    python3 chip_smoke.py --schur-inverse  # the staged cycle, either Schur inverse
 
 Needs one CUDA GPU; fails without one. Every failed check raises. The last
 two lines of standard output are the kernels' JSON record and
@@ -166,13 +180,13 @@ from gato_tpu_torch.api.config import IIWA14_START_CONFIGS, INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.dynamics.codegen import header_path, header_stats
 from gato_tpu_torch.ops import cuda_iter, cuda_kkt, cuda_merit, cuda_pcg, cuda_sim
+from gato_tpu_torch.ops import schur as schur_mod
 from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch.ops.cuda_iter import (iteration_variant, phase_a_default,
                                           smem_bytes, sqp_iter_core_cuda,
                                           sqp_iter_core_reference,
                                           variant_resources)
 from gato_tpu_torch.ops.cuda_kkt import setup_kkt_batched_cuda
-from gato_tpu_torch.ops.cuda_kkt import VARIANTS as KKT_VARIANTS
 from gato_tpu_torch.ops.cuda_kkt import variant_resources as kkt_resources
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
 from gato_tpu_torch.ops.cuda_pcg import CLUSTER_SIZES
@@ -211,7 +225,8 @@ N_LONG, B_LONG, K_LONG = 256, 64, 10
 # layout's last N, the global layout
 VARIANTS = (("global", 1, "one"), ("shared", 1, "one"), ("shared", 2, "one"),
             ("shared", 4, "one"), ("shared", 4, "staged"))
-KKT_DEFAULT = cuda_kkt.DEFAULT
+# the kkt variant indy7 takes (each plant's: cuda_kkt.DEFAULT)
+KKT_DEFAULT = cuda_kkt.DEFAULT["indy7"]
 MERIT_DEFAULT = cuda_merit.DEFAULT
 N_WIDE, CHECK_HORIZONS = 64, (64, 128)
 # where the pcg kernel's shared variant meets the 2-CTA cluster (B=512)
@@ -467,10 +482,11 @@ def ptxas_variants(name, robot="indy7"):
                    ("one", "staged")[int(m.group(3))]), robot)
 
 
-def ptxas_kkt():
-    """{kkt variant: ptxas' register and spill lines}."""
+def ptxas_kkt(robot):
+    """{kkt variant: ptxas' register and spill lines} of `robot`'s library."""
     return ptxas_lines("kkt", r"kkt_(one_kernel|staged_kernelILi(\d)E)",
-                       lambda m: ("staged", int(m.group(2))) if m.group(2) else ("one", 1))
+                       lambda m: ("staged", int(m.group(2))) if m.group(2) else ("one", 1),
+                       robot)
 
 
 def spill_bytes(ptxas):
@@ -1001,13 +1017,16 @@ KKT_FIELDS = ("Q", "q", "R", "r", "A", "B", "c")
 
 
 def compare_kkt(f, X, U, x_s, ref):
-    """The kkt kernel against setup_kkt_batched on the identical input: the
-    default variant first, then every other; and the default's largest
-    difference from the one-thread variant (the same SSA expressions, so
-    only FMA contraction may differ: reported, not held)."""
+    """The kkt kernel of f's plant against setup_kkt_batched on the
+    identical input: the plant's default variant first, then every other it
+    compiles; and the default's largest difference from the one-thread
+    variant (the same SSA expressions, so only FMA contraction may differ:
+    reported, not held) where they differ."""
+    plant = f.model.name
+    default, variants = cuda_kkt.DEFAULT[plant], cuda_kkt.VARIANTS[plant]
     p = setup_kkt_batched(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT)
     outs, worst = {}, {}
-    for v in [KKT_DEFAULT] + [v for v in KKT_VARIANTS if v != KKT_DEFAULT]:
+    for v in [default] + [v for v in variants if v != default]:
         k = outs[v] = setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT,
                                              variant=v)
         torch.cuda.synchronize()
@@ -1018,47 +1037,54 @@ def compare_kkt(f, X, U, x_s, ref):
                 raise RuntimeError(f"kkt kernel ({v}) output {name} is not finite")
             errs[name] = ((a - b).abs().max().item(), KKT_RTOL * b.abs().max().item())
         worst[v] = max(e for e, _ in errs.values())
-        log(f"[compare] kkt kernel ({v[0]}, G={v[1]}"
-            f"{', the default' if v == KKT_DEFAULT else ''}) vs setup_kkt_batched "
+        log(f"[compare] kkt kernel {plant} ({v[0]}, G={v[1]}"
+            f"{', the default' if v == default else ''}) vs setup_kkt_batched "
             f"(N={f.N}, B={f.B}): max abs err / tolerance (rtol {KKT_RTOL} of each "
             "tensor's max |value|): " + ", ".join(
                 f"{n} {e:.3e}/{t:.3e}" for n, (e, t) in errs.items()))
         if any(e > t for e, t in errs.values()):
             raise RuntimeError(f"kkt kernel ({v}) disagrees with its plain version: {errs}")
-    new, old = outs[KKT_DEFAULT], outs[("one", 1)]
-    diff = {n: (getattr(new, n) - getattr(old, n)).abs().max().item() for n in KKT_FIELDS}
-    log(f"[compare] kkt {KKT_DEFAULT} against the one-thread variant (N={f.N}, "
-        f"B={f.B}), max abs difference (reported): "
-        + ", ".join(f"{n} {d:.3e}" for n, d in diff.items()))
-    return p, worst[KKT_DEFAULT]
+    if default != cuda_kkt.ONE:
+        new, old = outs[default], outs[cuda_kkt.ONE]
+        diff = {n: (getattr(new, n) - getattr(old, n)).abs().max().item() for n in KKT_FIELDS}
+        log(f"[compare] kkt {plant} {default} against the one-thread variant (N={f.N}, "
+            f"B={f.B}), max abs difference (reported): "
+            + ", ".join(f"{n} {d:.3e}" for n, d in diff.items()))
+    return p, worst[default]
 
 
-def report_kkt_variants(sms):
-    """A [variant] kkt line for each variant: registers and spills (ptxas),
-    shared bytes a CTA, threads, CTAs per SM; the default must not spill."""
-    px = ptxas_kkt()
-    for v in KKT_VARIANTS:
-        nbytes, per_sm = kkt_resources(v)
-        log(f"[variant] kkt {v[0]} G={v[1]}{' (the default)' if v == KKT_DEFAULT else ''}: "
+def report_kkt_variants(sms, robot):
+    """A [variant] kkt line for each variant of `robot`'s library:
+    registers and spills (ptxas), shared bytes a CTA, threads, CTAs per SM.
+    indy7's default (the staged kernel) must not spill; iiwa14's (the
+    one-thread kernel, its header has no staged KKT) does, reported."""
+    px = ptxas_kkt(robot)
+    default = cuda_kkt.DEFAULT[robot]
+    for v in cuda_kkt.VARIANTS[robot]:
+        nbytes, per_sm = kkt_resources(v, robot)
+        log(f"[variant] kkt {robot} {v[0]} G={v[1]}{' (the default)' if v == default else ''}: "
             f"{nbytes} bytes of shared memory a CTA, {32 * v[1] if v[0] == 'staged' else 128} "
-            f"threads a CTA, {per_sm} CTAs per SM on {sms} SMs; ptxas: {px[v]}")
-    if spill_bytes(px[KKT_DEFAULT]) != 0:
-        raise RuntimeError(f"the kkt kernel {KKT_DEFAULT} spills: {px[KKT_DEFAULT]}")
+            f"threads a CTA, {per_sm} CTAs per SM on {sms} SMs; ptxas: {px[v]}; spill stores "
+            f"{spill_bytes(px[v])} B a thread")
+    if default != cuda_kkt.ONE and spill_bytes(px[default]) != 0:
+        raise RuntimeError(f"the kkt kernel {default} spills: {px[default]}")
 
 
 def time_kkt(f, X, U, x_s, ref, card, reps):
-    """Device ms per launch of kkt in every variant on one input
-    (time_in_rounds: two rounds in opposite orders, and ms per wrapper
-    call, where the host's time to enqueue a call shows); the fastest
-    beside the default. Returns {variant: device ms}."""
+    """Device ms per launch of kkt in every variant of f's plant on one
+    input (time_in_rounds: two rounds in opposite orders, and ms per
+    wrapper call, where the host's time to enqueue a call shows); the
+    fastest beside the default. Returns {variant: device ms}."""
+    plant = f.model.name
+    default = cuda_kkt.DEFAULT[plant]
     ms = {v: t[0] for v, t in time_in_rounds(
-        KKT_VARIANTS, lambda v: setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext,
-                                                       DT, variant=v),
-        reps, card, f"kkt N={f.N} B={f.B}", KKT_DEFAULT).items()}
+        cuda_kkt.VARIANTS[plant],
+        lambda v: setup_kkt_batched_cuda(f.model, f.cp, X, U, x_s, ref, f.f_ext, DT, variant=v),
+        reps, card, f"kkt {plant} N={f.N} B={f.B}", default).items()}
     fastest = min(ms, key=ms.get)
-    log(f"[kkt] N={f.N} B={f.B}: fastest {fastest} {ms[fastest]:.4f} ms; the default "
-        f"{KKT_DEFAULT} {ms[KKT_DEFAULT]:.4f} ms, the one-thread kernel "
-        f"{ms[('one', 1)]:.4f} ms ({ms[('one', 1)] / ms[KKT_DEFAULT]:.2f}x)")
+    log(f"[kkt] {plant} N={f.N} B={f.B}: fastest {fastest} {ms[fastest]:.4f} ms; the default "
+        f"{default} {ms[default]:.4f} ms, the one-thread kernel "
+        f"{ms[cuda_kkt.ONE]:.4f} ms ({ms[cuda_kkt.ONE] / ms[default]:.2f}x)")
     return ms
 
 
@@ -1068,41 +1094,44 @@ def lane_rel(a, b):
     return d / b.double().flatten(1).abs().max(1).values
 
 
-def pcg_variants(n):
-    """Every variant (layout, G, C) of the pcg kernel that fits horizon n:
-    the global one, the shared one at each G, the cluster one at each G and
-    C."""
+def pcg_variants(n, nx):
+    """Every variant (layout, G, C) of the pcg kernel that fits horizon n
+    for a system of state size nx: the global one, the shared one at each
+    G compiled for nx, the cluster one at each G and C."""
+    groups = PCG_GROUPS[nx]
     return ([("global", 1, 1)]
-            + [("shared", g, 1) for g in PCG_GROUPS if pcg_fits(n, "shared", g)]
-            + [("cluster", g, c) for c in CLUSTER_SIZES for g in PCG_GROUPS
-               if pcg_fits(n, "cluster", g, c)])
+            + [("shared", g, 1) for g in groups if pcg_fits(n, "shared", g, 1, nx=nx)]
+            + [("cluster", g, c) for c in CLUSTER_SIZES for g in groups
+               if pcg_fits(n, "cluster", g, c, nx=nx)])
 
 
-def ptxas_pcg():
+def ptxas_pcg(robot):
     """{(layout, G or the global kernel's thread bound): ptxas' register
-    and spill lines} of the pcg kernel's compiled variants."""
+    and spill lines} of the pcg kernel's compiled variants for `robot`."""
     return ptxas_lines(
         "pcg", r"pcg_smem_kernelILi(\d+)ELb([01])E|pcg_kernelILi(\d+)E",
         lambda m: ((("shared", "cluster")[int(m.group(2))], int(m.group(1))) if m.group(1)
-                   else ("global", int(m.group(3)))))
+                   else ("global", int(m.group(3)))), robot)
 
 
-def report_pcg_variants(n, b, sms):
+def report_pcg_variants(n, b, sms, nx):
     """A [variant] line for each pcg variant that fits horizon n at batch
-    b: shared bytes per CTA, C, CTAs per SM, clusters resident
-    (cudaOccupancyMaxActiveClusters), the waves that the batch takes, the
-    ptxas line."""
-    px = ptxas_pcg()
-    for v in pcg_variants(n):
-        nbytes, per_sm, clusters = pcg_resources(n, b, *v)
+    b for a system of state size nx: shared bytes per CTA, C, CTAs per SM,
+    clusters resident (cudaOccupancyMaxActiveClusters), the waves that the
+    batch takes, the ptxas line."""
+    robot = cuda_pcg.PLANT_OF_NX[nx]
+    px = ptxas_pcg(robot)
+    for v in pcg_variants(n, nx):
+        nbytes, per_sm, clusters = pcg_resources(n, b, *v, nx=nx)
         if v[0] == "global":
             key = ("global", next(t for t in (128, 256, 512, 1024) if n <= t))
             waves = -(-b // (per_sm * sms))
         else:
             key = v[:2]
             waves = -(-b // (clusters if v[0] == "cluster" else per_sm * sms))
-        taken = " (the variant N takes)" if pcg_variant(n) == v else ""
-        log(f"[variant] pcg N={n} B={b} {v[0]} G={v[1]} C={v[2]}{taken}: {nbytes} bytes "
+        taken = " (the variant N takes)" if pcg_variant(n, nx) == v else ""
+        log(f"[variant] pcg{'' if nx == 12 else ' ' + robot} N={n} B={b} {v[0]} G={v[1]} "
+            f"C={v[2]}{taken}: {nbytes} bytes "
             f"of shared memory a CTA, {per_sm} CTAs per SM, "
             f"{'clusters resident ' + str(clusters) if clusters >= 0 else 'no cluster'}, "
             f"{waves} wave(s) of the batch on {sms} SMs; ptxas: {px[key]}")
@@ -1111,13 +1140,14 @@ def report_pcg_variants(n, b, sms):
 def check_pcg_smem_mirror():
     """The library's shared-memory byte count of every pcg variant against
     its Python mirror (ops/cuda_pcg.py::smem_bytes) at every N the kernel
-    takes."""
-    bad = [(m, v) for m in range(1, 1025) for v in pcg_variants(m)
-           if pcg_library_bytes(m, *v) != pcg_smem_bytes(m, *v)]
-    if bad:
-        raise RuntimeError(f"pcg smem_bytes differs from the library at {bad[:4]}")
+    takes, for each plant's library."""
+    for nx, robot in cuda_pcg.PLANT_OF_NX.items():
+        bad = [(m, v) for m in range(1, 1025) for v in pcg_variants(m, nx)
+               if pcg_library_bytes(m, *v, nx=nx) != pcg_smem_bytes(m, *v, nx=nx)]
+        if bad:
+            raise RuntimeError(f"pcg smem_bytes ({robot}) differs from the library at {bad[:4]}")
     log("[variant] pcg bytes of shared memory equal ops/cuda_pcg.py::smem_bytes "
-        "for every variant at N = 1..1024")
+        f"for every variant at N = 1..1024, for {', '.join(cuda_pcg.PLANT_OF_NX.values())}")
 
 
 def compare_pcg(f, kkt, lam0, lam_held=True):
@@ -1141,7 +1171,8 @@ def compare_pcg(f, kkt, lam0, lam_held=True):
     With lam_held=False the lam limit's verdict is printed and not held
     (the counts and the float64 rule still are): the long horizon's
     steady state, see main()."""
-    sch = build_schur(kkt, f.hp.rho, 6)
+    nx = f.model.nx
+    sch = build_schur(kkt, f.hp.rho, f.model.nq)
     system = (sch.S_main, sch.S_lower, sch.P_main, sch.P_lower, sch.gamma, lam0,
               f.hp.pcg_tol)
     skip = torch.zeros(f.B, dtype=torch.bool, device=f.dev)
@@ -1149,9 +1180,9 @@ def compare_pcg(f, kkt, lam0, lam_held=True):
     lp, ip = pcg_solve_batched(*system, mpcg, skip)
     l64, i64 = pcg_solve_batched(*(t.double() for t in system), mpcg, skip)
     p_rel, p_cnt = lane_rel(lp, l64), (ip - i64).abs()
-    taken = pcg_variant(f.N)
+    taken = pcg_variant(f.N, nx)
     results = {}
-    for v in [taken] + [v for v in pcg_variants(f.N) if v != taken]:
+    for v in [taken] + [v for v in pcg_variants(f.N, nx) if v != taken]:
         lk, ik = pcg_solve_batched_cuda(*system, mpcg, skip, variant=v)
         torch.cuda.synchronize()
         if not torch.isfinite(lk).all():
@@ -1177,7 +1208,7 @@ def compare_pcg(f, kkt, lam0, lam_held=True):
                    iters_sum=int(ik.sum()), iters_max=int(ik.max()),
                    iters_mean=ik.double().mean().item(),
                    at_cap_frac=(ik == mpcg).double().mean().item())
-        log(f"[compare] pcg kernel ({v[0]}, G={v[1]}, C={v[2]}"
+        log(f"[compare] pcg kernel {f.model.name} ({v[0]}, G={v[1]}, C={v[2]}"
             f"{', the variant N takes' if v == taken else ''}) vs pcg_solve_batched "
             f"(N={f.N}, B={f.B}, identical "
             f"assembled system): identical counts on {res['same_frac']:.4f} of lanes "
@@ -1210,21 +1241,24 @@ def time_pcg(n, b, system, skip, card, reps):
     system: two rounds in opposite orders, their mean (CUDA events); the
     fastest beside the variant that n takes."""
     mpcg = P["max_pcg_iters"]
-    variants = pcg_variants(n)
+    nx = system[4].shape[-1]
+    variants = pcg_variants(n, nx)
     rounds = {v: [] for v in variants}
     for order in (variants, variants[::-1]):
         for v in order:
             rounds[v].append(event_ms(
                 lambda: pcg_solve_batched_cuda(*system, mpcg, skip, variant=v), reps))
     ms = {v: statistics.mean(t) for v, t in rounds.items()}
-    taken, fastest = pcg_variant(n), min(ms, key=ms.get)
+    taken, fastest = pcg_variant(n, nx), min(ms, key=ms.get)
+    plant = "" if nx == 12 else f" {cuda_pcg.PLANT_OF_NX[nx]}"
     for v in variants:
-        log(f"[pcg] {card}: N={n} B={b} {v[0]} G={v[1]} C={v[2]}"
+        log(f"[pcg] {card}:{plant} N={n} B={b} {v[0]} G={v[1]} C={v[2]}"
             f"{' (the variant N takes)' if v == taken else ''}: {ms[v]:.4f} ms per "
             f"launch; rounds {[round(t, 4) for t in rounds[v]]}")
-    log(f"[pcg] N={n} B={b}: fastest {fastest} {ms[fastest]:.4f} ms; the variant N "
+    log(f"[pcg]{plant} N={n} B={b}: fastest {fastest} {ms[fastest]:.4f} ms; the variant N "
         f"takes {taken} {ms[taken]:.4f} ms ({ms[taken] / ms[fastest] - 1:+.2%}; within "
         f"3 %: {ms[taken] <= 1.03 * ms[fastest]})")
+    return ms
 
 
 def pcg_same_bits_as_global(system, skip):
@@ -1410,7 +1444,7 @@ def f64_assembled_system(f, X, U, x_s, ref, lam0):
     m64 = load_robot(f.model.name, torch.float64, f.dev)
     kkt = setup_kkt_batched(m64, f.cp, X.double(), U.double(), x_s.double(),
                             ref.double(), f.f_ext.double(), DT)
-    sch = build_schur(kkt, f.hp.rho.double(), 6)
+    sch = build_schur(kkt, f.hp.rho.double(), f.model.nq)
     return (*(getattr(sch, n).float() for n in SCHUR_FIELDS), lam0, f.hp.pcg_tol)
 
 
@@ -1439,7 +1473,8 @@ def pcg_witness(f, system, tag, held):
     ok = (res["same_frac"] >= PCG_SAME_MIN
           and res["kernel_plain"] <= max(LAM_RTOL, res["cpu_plain"])
           and res["kernel_f64"] <= max(res["plain_f64"], res["cpu_f64"]))
-    log(f"[witness] pcg at N={f.N} B={f.B}, {tag} ({pcg_variant(f.N)}): identical counts "
+    log(f"[witness] pcg at N={f.N} B={f.B}, {tag} ({pcg_variant(f.N, f.model.nx)}): "
+        f"identical counts "
         f"with the card's plain32 on {res['same_frac']:.4f} of lanes (the CPU's plain32 "
         f"{res['cpu_same_frac']:.4f}; tolerance >= {PCG_SAME_MIN}); lam normwise from the card's "
         f"plain32: kernel {res['kernel_plain']:.3e}, the CPU's plain32 {res['cpu_plain']:.3e}; "
@@ -1649,17 +1684,19 @@ def forced(module, name, value):
 # the other kernels that a route can be forced to, in turns with the taken
 # ones: pcg's global variant, the one-thread phase A of bsqp_iter and iter,
 # the one-thread kkt and merit kernels (the earlier ones), and rk4's
-# two-warp kernel; AB_ROUNDS rounds of the turns, since a host-bound
+# two-warp kernel; and the Schur inverse by triangular solves; AB_ROUNDS rounds of the turns, since a host-bound
 # route's batches of K cycles spread by up to 1.5x in one run
 AB_ROUNDS = 3
 FORCED = {
     "pcg in the global variant": lambda: forced(cuda_pcg, "pcg_variant",
-                                                lambda n: ("global", 1, 1)),
+                                                lambda n, nx: ("global", 1, 1)),
     "the one-thread phase A": lambda: forced(cuda_iter, "phase_a_default",
-                                             lambda layout, g, nx=12: "one"),
-    "the one-thread kkt": lambda: forced(cuda_kkt, "DEFAULT", ("one", 1)),
+                                             lambda layout, g, nx: "one"),
+    "the one-thread kkt": lambda: forced(cuda_kkt, "DEFAULT",
+                                         {p: cuda_kkt.ONE for p in cuda_kkt.DEFAULT}),
     "the two-warp rk4 (crba)": lambda: forced(cuda_sim, "DEFAULT", "crba"),
     "the one-thread merit": lambda: forced(cuda_merit, "DEFAULT", "one"),
+    "spd_inv by triangular solves": schur_mod.capturable_inverse,
 }
 
 
@@ -1699,6 +1736,22 @@ def route_ab(f, state, i0, card, k, gates, earlier, fixed=False):
         f"of {len(med['taken'])} pairs; "
         f"PCG iterations a lane, each batch's mean: {[round(t, 2) for t in pcg['taken']]} "
         f"against {[round(t, 2) for t in pcg['earlier']]}")
+
+
+def schur_inverse_phase(dev, card):
+    """[schur-inverse]: the staged route's cycle (kkt, pcg, merit and rk4,
+    the Schur build between them in PyTorch) with ops/schur.py::spd_inv as
+    the routes take it (torch.cholesky_inverse) and in the form the fleet's
+    CUDA graph captures (two triangular solves, capturable_inverse), in
+    turns (route_ab), for indy7 and iiwa14 at N=32 B=512 and N=256 B=64,
+    each from its fig-8 steady state."""
+    for robot in ("indy7", IIWA):
+        for n, b in ((N, B), (N_LONG, B_LONG)):
+            fx = Fig8(dev, n, b, robot)
+            state, i0 = fx.steady_state()
+            route_ab(fx, state, i0, f"{card}; {robot}", K, ("off", "off"),
+                     "spd_inv by triangular solves")
+            del fx, state
 
 
 def route_run(f, state, i0, gates, expect, card):
@@ -2319,6 +2372,16 @@ IIWA = "iiwa14"
 # both variants (compare_rk4) and timed at B=1
 IIWA_CHECKS = ((N, 128), (N, B), (cuda_iter.SHARED_MAX_N, B), (128, B))
 IIWA_VARIANTS = (("shared", 1), ("shared", 2), ("shared", 7), ("global", 1))
+# [iiwa14-staged]: kkt and pcg for iiwa14 at N=32 B=512 and at IIWA_LONG,
+# indy7's long-horizon shape; pcg timed in every variant at IIWA_PCG_EDGES
+# (B=512), where iiwa14's cut points fall: the shared variant's last N (it
+# stops fitting past it), the 4-CTA clusters' last
+IIWA_LONG = (N_LONG, B_LONG)
+IIWA_PCG_EDGES = (cuda_pcg.SHARED_MAX_N[14], cuda_pcg.CLUSTER4_MAX_N)
+# [fleet]: gato_tpu_torch.examples.mixed_fleet (indy7 + iiwa14, B each) at
+# (N, B, cycles): the example's default, and a horizon past 128 knots where
+# both members take the staged route
+FLEET_POINTS = ((8, 8, 60), (N_LONG, 8, 20))
 # [rollout-iiwa14]: tests/test_rollout.py::test_rollout_reaches_nearby_goal
 # carried to iiwa14 at N=32 B=512: the elbow-bent start
 # (examples/mixed_fleet.py:130), a goal REACH_OFFSET m from its EE, that
@@ -2515,31 +2578,107 @@ def iiwa14_variants(card, f, prob, s0):
     return ms
 
 
-def iiwa14_unserved(f):
-    """iiwa14's solves that reach the kkt and pcg kernels (route "staged":
-    past N = 128, or iter_kernel="off") raise NotImplementedError naming
-    the kkt kernel and the ROADMAP item, before any launch."""
-    nq, nx = f.model.nq, f.model.nx
-    for n, gates in ((cuda_iter.MAX_KNOTS + 1, ("auto", "auto")), (N, ("off", "off"))):
-        b = 2
-        settings = BSQPSettings(N=n, max_sqp_iters=1, max_pcg_iters=10,
-                                solve_kernel=gates[0], iter_kernel=gates[1])
-        hp = HyperParams.create(b, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"], device=f.dev)
-        z = functools.partial(torch.zeros, device=f.dev)
+def iiwa14_staged_phase(dev, card, f, state, i0):
+    """[iiwa14-staged]: the kkt and pcg kernels built for iiwa14, held as
+    indy7's are, at N=32 B=512 (f's fig-8 steady state, [iiwa14-kernels])
+    and N=256 B=64 (IIWA_LONG): compare_kkt (iiwa14's one-thread kernel, its
+    only variant) and compare_pcg (every variant that fits; the counts
+    equal on identical assembled systems, lam within plain32's own distance
+    from float64), each variant's [variant] line; device, wrapper-call and
+    plain ms with bounds from the run's inputs and pcg's torch.linalg.solve
+    yardstick; pcg timed in every variant where iiwa14's cut points fall
+    (IIWA_PCG_EDGES). Then the staged route, K_LONG cycles from each steady
+    state: iter_kernel="off" at N=32, "auto" at N=256, each cycle launching
+    kkt, pcg, merit and rk4 and nothing else (held), and at N=256 lane 0's
+    tracking within TRACK_REL of the plain route's (long_tracking). Returns
+    the kernels line's iiwa14 numbers of kkt and pcg, at N=32 B=512."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report_kkt_variants(sms, IIWA)
+    nq = f.model.nq
+    stats, ops = generated_stats(IIWA), plant_ops(nq)
+    mpcg = P["max_pcg_iters"]
+    fl = Fig8(dev, *IIWA_LONG, IIWA)
+    state_l, i0_l = fl.steady_state()
+    line = {}
+    for fx, (X, U, lam, x_s), i in ((f, state, i0), (fl, state_l, i0_l)):
+        ref = fx.ref(i - 1)
+        kkt_p, kkt_err = compare_kkt(fx, X, U, x_s, ref)
+        report_pcg_variants(fx.N, fx.B, sms, 2 * nq)
+        system, skip, res = compare_pcg(fx, kkt_p, lam)
+        reps = 20 if fx.N == N else 5
+        t = dict(kkt=(lambda: setup_kkt_batched_cuda(fx.model, fx.cp, X, U, x_s, ref,
+                                                     fx.f_ext, DT),
+                      lambda: setup_kkt_batched(fx.model, fx.cp, X, U, x_s, ref, fx.f_ext, DT)),
+                 pcg=(lambda: pcg_solve_batched_cuda(*system, mpcg, skip),
+                      lambda: pcg_solve_batched(*system, mpcg, skip)))
+        times = {n: (graph_ms(kf, reps), event_ms(kf, reps), event_ms(pf, 1))
+                 for n, (kf, pf) in t.items()}
+        # the yardstick without its singularity check: at N=256 a lane's
+        # dense float32 matrix can come out singular to LU (torch.linalg.
+        # solve raises, and would read the device)
+        S_dense = dense_btd(system[0], system[1])
+        library_ms = event_ms(lambda: torch.linalg.solve_ex(
+            S_dense, system[4].reshape(fx.B, -1, 1)), 3)
+        del S_dense
+        vec = torch.empty(fx.B, device=dev)
+        bounds = dict(
+            kkt=bound(fx.B * fx.N * stats["knot_kkt"][0],
+                      nbytes(X, U, ref[..., :3], fx.f_ext)
+                      + nbytes(*(getattr(kkt_p, n) for n in KKT_FIELDS))),
+            pcg=bound(fx.B * fx.N * ops["pcg_setup"] + fx.N * ops["pcg_iter"] * res["iters_sum"],
+                      nbytes(*system, skip) + nbytes(lam) + nbytes(vec)))
+        log(f"[timing] {card}: {IIWA} N={fx.N} B={fx.B}, ms per call, kernel on the device "
+            f"(graph_ms) / per wrapper call (CUDA events) / plain version: "
+            + ", ".join(f"{n} {d:.4f} / {w:.4f} / {p:.3f}" for n, (d, w, p) in times.items())
+            + f"; pcg library yardstick torch.linalg.solve_ex on the dense ({fx.N * 2 * nq})^2 "
+            f"Schur matrix {library_ms:.3f} ms; PCG iterations mean {res['iters_mean']:.2f}, "
+            f"max {res['iters_max']}, at the cap {res['at_cap_frac']:.4f}")
+        taken = dict(kkt=cuda_kkt.DEFAULT[IIWA], pcg=pcg_variant(fx.N, 2 * nq))
+        for n in ("kkt", "pcg"):
+            log(f"[bound] {n} {IIWA} N={fx.N} B={fx.B} ({taken[n]}): "
+                f"{times[n][0]:.4f} ms on the card, bound {bounds[n][0]:.5f} ms by "
+                f"{bounds[n][1]} ({bounds[n][0] / times[n][0]:.4f} of the bound reached)")
+        if fx is f:
+            errs = dict(kkt=kkt_err, pcg=res["lam_max_abs_err"])
+            line = {n: dict(max_abs_err=errs[n], ms=times[n][0], wrapper_ms=times[n][1],
+                            plain_ms=times[n][2], bound_ms=bounds[n][0], bound_by=bounds[n][1])
+                    for n in ("kkt", "pcg")}
+            line["pcg"]["library_ms"] = library_ms
+    for n in IIWA_PCG_EDGES:
+        fe = Fig8(dev, n, B, IIWA)
+        (Xe, Ue, lame, xse), i0_e = fe.steady_state()
+        kkt_e = setup_kkt_batched(fe.model, fe.cp, Xe, Ue, xse, fe.ref(i0_e - 1), fe.f_ext, DT)
+        sch_e = build_schur(kkt_e, fe.hp.rho, nq)
+        report_pcg_variants(n, B, sms, 2 * nq)
+        time_pcg(n, B, (sch_e.S_main, sch_e.S_lower, sch_e.P_main, sch_e.P_lower, sch_e.gamma,
+                        lame, fe.hp.pcg_tol),
+                 torch.zeros(B, dtype=torch.bool, device=dev), card, 10)
+        del fe, kkt_e, sch_e
+    # the staged route, K_LONG cycles from each steady state
+    iters = P["max_sqp_iters"]
+    want = dict(bsqp_iter=0, iter=0, kkt=K_LONG * iters, pcg=K_LONG * iters,
+                merit=K_LONG * iters, rk4=K_LONG)
+    for fx, st, i, gates in ((f, state, i0, ("off", "off")),
+                             (fl, state_l, i0_l, ("auto", "auto"))):
+        if select_route(*gates, fx.N, True) != "staged":
+            raise RuntimeError(f"gates {gates} at N={fx.N} did not take the staged route")
         reset_launches()
-        try:
-            solve_batched(f.model, settings, f.cp, hp, z(b, n, nx), z(b, n - 1, nq), z(b, n, nx),
-                          z(b, nx), z(b, n, 6), z(b, 6), DT)
-        except NotImplementedError as e:
-            msg = str(e)
-        else:
-            msg = None
+        st_k, ms_k, err_k, pcg_k, step_k = fx.run(st, i, fx.solver(fx.settings_with(*gates)),
+                                                  fx.plant_kernel, K_LONG)
         got = launches()
-        log(f"[route] {IIWA} N={n} gates {gates} ({select_route(*gates, n, True)}): raises "
-            f"{msg!r}; launches {got}")
-        if not (msg and "kkt kernel" in msg and "ROADMAP Queue 2" in msg
-                and not any(got.values())):
-            raise RuntimeError(f"{IIWA}'s staged route at N={n} did not raise before a launch")
+        finite = bool(torch.isfinite(st_k[0]).all())
+        med = statistics.median(ms_k)
+        log(f"[iiwa14-staged] {card}: {IIWA} N={fx.N} B={fx.B} route {gates} (staged) over "
+            f"{K_LONG} cycles: launches {got}; per-cycle median {med:.3f} ms (CUDA events, "
+            f"{fx.B / (med / 1e3):.1f} solves/s); lane 0 mean EE error "
+            f"{err_k.mean().item():.5f} m; states finite {finite}; work "
+            f"{json.dumps(work_trace(pcg_k, step_k))}")
+        if got != want or not finite:
+            raise RuntimeError(f"[iiwa14-staged] N={fx.N}: launches {got} (expected {want}) or "
+                               "a non-finite trajectory")
+        line.setdefault("route_ms", {})[fx.N] = med
+    long_tracking(fl, state_l, i0_l, err_k)
+    return line
 
 
 def iiwa14_kernels_phase(dev, card, pend):
@@ -2551,8 +2690,8 @@ def iiwa14_kernels_phase(dev, card, pend):
     compare_iteration at IIWA_CHECKS (the long horizons with noise_limits),
     compare_core and compare_merit at N=32 B=512, compare_rk4 in both
     variants at B=1 and B=512 with and without a wrench; rk4 for the
-    pendulum plants (pendulum_rk4_phase); the staged route's raise
-    (iiwa14_unserved). Then the variants' lines and times, and each
+    pendulum plants (pendulum_rk4_phase). Then the variants' lines and
+    times, and each
     kernel's device, wrapper-call and plain ms at N=32 B=512 (rk4 at B=1).
     Returns the numbers of the kernels line."""
     res = {}
@@ -2570,7 +2709,6 @@ def iiwa14_kernels_phase(dev, card, pend):
     core_args, core_skip, core_ref, core_res = compare_core(f, state, i0 - 1)
     dzx, dzu = scrubbed(core_ref[0], core_ref[1])
     merit_args, merit_err = compare_merit(f, X, U, dzx, dzu, x_s, ref)
-    iiwa14_unserved(f)
     xr, ur, rk4_err = compare_rk4(f, state)
     pend_res = pendulum_rk4_phase(pend, card)
     lay = iiwa14_variants(card, f, prob, s0)
@@ -2748,12 +2886,83 @@ def bench_iiwa14_phase(f, state, i0, card, kernel_times):
 
 def iiwa14_phases(dev, card, pend):
     """The second plant and the pendulum plants: the kernels, the fig-8
-    cycle on the default and the fused-iteration routes, the rollouts."""
+    cycle on the default and the fused-iteration routes, the kkt and pcg
+    kernels and the staged route, the rollouts."""
     f, state, i0, kern = iiwa14_kernels_phase(dev, card, pend)
     bench = bench_iiwa14_phase(f, state, i0, card, kern["times"])
+    staged = iiwa14_staged_phase(dev, card, f, state, i0)
+    del f, state
     rollout_iiwa14_phase(dev, card)
     goals = goals_iiwa14_phase(dev, card)
-    return kern, bench, goals
+    return kern, bench, staged, goals
+
+
+def fleet_phase(card):
+    """[fleet]: the mixed indy7 + iiwa14 fleet through its example's entry
+    point (gato_tpu_torch.examples.mixed_fleet.main, device_time=True) at
+    each of FLEET_POINTS, the launch counts from 0 before each. Held: each
+    member's solves and plant steps of the example's loop launch, a cycle,
+    bsqp_iter (N <= 128) or kkt, pcg and merit (past it) of its plant once,
+    and rk4 once, and nothing else; every solve's X and U finite; the
+    fleet's graphed cycle equal to the eager one bit for bit (the example
+    holds it) with both members' launches captured in it. Printed, not
+    held: the fleet report and the tracking errors (the loop is chaotic),
+    ms a graphed cycle. Returns {N: the example's record, with
+    "launches_per_member"}."""
+    from gato_tpu_torch.examples import mixed_fleet
+    from gato_tpu_torch.parallel import fleet as fleet_mod
+
+    records = {}
+    for n, b, cycles in FLEET_POINTS:
+        counting = [True]
+        per = {name: dict.fromkeys(WRAPPERS, 0) for name, *_ in mixed_fleet.SPECS}
+        finite = []
+
+        def counted(fn):
+            def call(model, *a, **kw):
+                before = launches()
+                out = fn(model, *a, **kw)
+                if counting[0]:
+                    for k, v in launches().items():
+                        per[model.name][k] += v - before[k]
+                    if fn is solve_batched:
+                        finite.append(torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all())
+                return out
+            return call
+
+        def timed(*a, **kw):  # the graphed cycle's launches are its own count
+            counting[0] = False
+            return graph_time(*a, **kw)
+
+        graph_time = mixed_fleet.device_cycle_time
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(fleet_mod, "solve_batched", counted(solve_batched)), \
+                mock.patch.object(mixed_fleet, "rk4_step", counted(rk4_step)), \
+                mock.patch.object(mixed_fleet, "device_cycle_time", timed):
+            out = mixed_fleet.main(cycles=cycles, B=b, N=n, device_time=True)
+        secs = time.perf_counter() - t0
+        route = select_route("auto", "auto", n, True)
+        per_cycle = (dict(bsqp_iter=1, rk4=1) if route == "solve"
+                     else dict(kkt=1, pcg=1, merit=1, rk4=1))
+        want = {name: {k: cycles * per_cycle.get(k, 0) for k in WRAPPERS} for name in per}
+        graph_want = {k: len(per) * per_cycle.get(k, 0) for k in WRAPPERS}
+        all_finite = bool(torch.stack(finite).all())
+        g = out["graph"]
+        log(f"[fleet] {card}: indy7 + iiwa14, B={b} each, N={n} (route {route}), {cycles} "
+            f"cycles in {secs:.1f} s: launches per member {per}; every solve finite "
+            f"{all_finite}; the graphed cycle {g['ms_per_cycle']:.4f} ms "
+            f"({out['lane_solves_per_s']} lane-solves/s), equal to the eager one bit for bit "
+            f"{g['equal_to_eager']}, its launches {g['launches_per_cycle']}")
+        log(f"[fleet] N={n} report (printed, not held): {json.dumps(out['final_report'])}; "
+            f"tracking error over the last {cycles - cycles // 4} cycles (m): "
+            f"{json.dumps(out['tracking_err_m'])}")
+        if per != want or g["launches_per_cycle"] != graph_want or not all_finite:
+            raise RuntimeError(f"[fleet] N={n}: launches per member {per} (expected {want}), "
+                               f"graphed {g['launches_per_cycle']} (expected {graph_want}) "
+                               f"or a non-finite solve")
+        records[n] = dict(out, launches_per_member=per)
+    return records
 
 
 def main(argv=None):
@@ -2775,6 +2984,12 @@ def main(argv=None):
     parser.add_argument("--iiwa14", action="store_true",
                         help="only build the kernels and run the second plant's phases "
                              "(iiwa14_phases), then stop")
+    parser.add_argument("--fleet", action="store_true",
+                        help="only build the kernels and run the mixed fleet (fleet_phase), "
+                             "then stop")
+    parser.add_argument("--schur-inverse", action="store_true",
+                        help="only build the kernels and time the staged cycle with the "
+                             "Schur inverse in either form (schur_inverse_phase), then stop")
     parser.add_argument("--tracking-spread", action="store_true",
                         help="only build the kernels and print the N=32 tracking gate "
                              "and step check on nearby inputs (tracking_spread), then stop")
@@ -2803,6 +3018,12 @@ def main(argv=None):
     if args.iiwa14:
         iiwa14_phases(dev, card, pend)
         return 0
+    if args.fleet:
+        fleet_phase(card)
+        return 0
+    if args.schur_inverse:
+        schur_inverse_phase(dev, card)
+        return 0
     if args.rollouts:
         f = Fig8(dev)
         state, i0 = f.steady_state()
@@ -2818,8 +3039,8 @@ def main(argv=None):
     report_variants()
     check_pcg_smem_mirror()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    report_pcg_variants(N, B, sms)
-    report_kkt_variants(sms)
+    report_pcg_variants(N, B, sms, 12)
+    report_kkt_variants(sms, "indy7")
     report_rk4_merit_variants(sms)
 
     f = Fig8(dev)
@@ -2918,7 +3139,7 @@ def main(argv=None):
         kkt_e = setup_kkt_batched(fe.model, fe.cp, Xe, Ue, xse, fe.ref(i0_e - 1),
                                   fe.f_ext, DT)
         sch_e = build_schur(kkt_e, fe.hp.rho, 6)
-        report_pcg_variants(n, B, sms)
+        report_pcg_variants(n, B, sms, 12)
         time_pcg(n, B, (sch_e.S_main, sch_e.S_lower, sch_e.P_main, sch_e.P_lower,
                         sch_e.gamma, lame, fe.hp.pcg_tol),
                  torch.zeros(B, dtype=torch.bool, device=dev), card, 10)
@@ -2979,7 +3200,9 @@ def main(argv=None):
     # ---- the on-device rollouts, each cycle one CUDA graph ----
     goals = rollout_phases(f, dev, card, med_k)
     # ---- the second plant: iiwa14's kernels, rollouts and fig-8 cycle ----
-    kern_i, bench_i, goals_i = iiwa14_phases(dev, card, pend)
+    kern_i, bench_i, staged_i, goals_i = iiwa14_phases(dev, card, pend)
+    # ---- the mixed indy7 + iiwa14 fleet, at N=8 and past 128 knots ----
+    fleet_i = fleet_phase(card)
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":
@@ -2999,7 +3222,7 @@ def main(argv=None):
         f"the card (graph_ms), bound {long_kkt_bound[0]:.5f} ms by {long_kkt_bound[1]} "
         f"({long_kkt_bound[0] / long_kkt_ms:.4f} of the bound reached); plain version "
         f"{long_kkt_plain_ms:.3f} ms")
-    report_pcg_variants(N_LONG, B_LONG, sms)
+    report_pcg_variants(N_LONG, B_LONG, sms, 12)
     # pcg's lam limit is plain32's own distance from float64, one sample of
     # float32 noise: on the default route's steady state the kernel lies
     # farther from plain32 than that, so the limit is printed there and not
@@ -3043,7 +3266,7 @@ def main(argv=None):
                        + N_LONG * PCG_ITER_OPS * pcg_res_l["iters_sum"],
                        nbytes(*pcg_sys_l, pcg_skip_l) + nbytes(laml)
                        + nbytes(torch.empty(B_LONG, device=dev)))
-    log(f"[bound] pcg at N={N_LONG} B={B_LONG} ({pcg_variant(N_LONG)}): "
+    log(f"[bound] pcg at N={N_LONG} B={B_LONG} ({pcg_variant(N_LONG, 12)}): "
         f"{long_pcg_device_ms:.4f} ms on the device (graph_ms), {long_pcg_ms:.4f} ms per "
         f"wrapper call, bound {long_bound[0]:.5f} ms by "
         f"{long_bound[1]} ({long_bound[0] / long_pcg_device_ms:.4f} of the bound reached); "
@@ -3148,9 +3371,17 @@ def main(argv=None):
     # (their slugs among its plants) held and timed in [iiwa14-kernels],
     # launched by the goals rollouts' warm-up cycle and capture (each
     # replay runs the captured launch, uncounted)
+    # kkt and pcg: held and timed at N=32 B=512 in [iiwa14-staged], launched
+    # by the fleet's iiwa14 member past 128 knots ([fleet], its own count)
     for k in kernels:
-        if IIWA in k["plants"]:
-            n = k["name"]
+        n = k["name"]
+        if n in ("kkt", "pcg"):
+            st = staged_i[n]
+            k[IIWA] = dict(launches=fleet_i[N_LONG]["launches_per_member"][IIWA][n],
+                           max_abs_err=st["max_abs_err"], ms=st["ms"], plain_ms=st["plain_ms"],
+                           bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                           library_ms=st.get("library_ms"))
+        elif IIWA in k["plants"]:
             run = bench_i["iter_launches"] if n in ("iter", "merit") else bench_i["launches"]
             k[IIWA] = dict(launches=run[n], max_abs_err=kern_i["errs"][n],
                            ms=kern_i["times"][n][0], plain_ms=kern_i["times"][n][2],

@@ -21,7 +21,8 @@ built; nvcc then takes `-I build/gato_tpu_torch -I gato_tpu_torch/csrc`,
 and the header's text enters the library's hash.
 
 (--split-compile=0 optimizes the kernels of one file in parallel on every
-CPU: the iteration kernels' files hold five variants each, kkt.cu three.)
+CPU: the iteration kernels' files hold five variants each, kkt.cu two for
+indy7 and one for iiwa14.)
 
 The libraries go to `build/gato_tpu_torch/` beside the package, named by
 kernel, plant and a hash of every file under csrc/ and of the flags
@@ -47,13 +48,14 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "gato_tpu_torch")
 GENERATED_DIR = os.path.join(BUILD_DIR, "generated")
-# the plants with a committed header that each kernel is built for; rk4
-# also serves the pendulum-augmented plants of the first two, whose headers
-# are generated at first use (GENERATED); a kernel's other plants are
-# ROADMAP Queue 2's (ops/cuda_sim.py::require_cuda_robot raises for them)
+# the plants with a committed header that each kernel is built for: every
+# kernel serves both; rk4 also serves the pendulum-augmented plants of the
+# two, whose headers are generated at first use (GENERATED); any other
+# plant is ROADMAP Queue 2's (ops/cuda_sim.py::require_cuda_robot raises
+# for it)
 KERNELS = {"rk4": ("indy7", "iiwa14"), "bsqp_iter": ("indy7", "iiwa14"),
-           "iter": ("indy7", "iiwa14"), "pcg": ("indy7",), "merit": ("indy7", "iiwa14"),
-           "kkt": ("indy7",)}
+           "iter": ("indy7", "iiwa14"), "pcg": ("indy7", "iiwa14"),
+           "merit": ("indy7", "iiwa14"), "kkt": ("indy7", "iiwa14")}
 # every (kernel, plant) library of the committed headers
 LIBRARIES = tuple((name, robot) for name, robots in KERNELS.items() for robot in robots)
 # {slug: (header text, kernels)} of the plants whose header is generated

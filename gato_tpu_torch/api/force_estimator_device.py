@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..robots.model import check_device
+
 
 @dataclass(frozen=True)
 class FEState:
@@ -48,10 +50,13 @@ def fibonacci_sphere(n: int) -> np.ndarray:
     return pts
 
 
-def fe_init(initial_radius=10.0, dtype=torch.float32, device="cpu") -> FEState:
-    """The initial state. The JAX package's is float32; the rollouts make
-    theirs in their inputs' dtype (float32 on the card). The rotation stays
-    float32, as rotation_from_uniforms makes it."""
+def fe_init(initial_radius=10.0, dtype=torch.float32, device="cuda") -> FEState:
+    """The initial state, on the card unless `device` says otherwise
+    (robots/model.py::check_device raises without one). The JAX package's
+    is float32; the rollouts make theirs in their inputs' dtype (float32 on
+    the card). The rotation stays float32, as rotation_from_uniforms makes
+    it."""
+    device = check_device(device)
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 

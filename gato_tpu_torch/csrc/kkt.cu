@@ -11,22 +11,26 @@
 // to the wrapper. The plain PyTorch version is
 // ops/kkt_fast.py::setup_kkt_batched.
 //
+// Compiled once per plant (csrc/robot.cuh): entry points gato_kkt_<plant>.
 // Two variants (ops/cuda_kkt.py::setup_kkt_batched_cuda):
-//   staged  (the default) a CTA takes KNOTS = 32 consecutive knots of
-//           the flattened (B, N) grid and G = KKT_GROUPS = 2 threads per knot,
-//           part-major (warp P runs part P of the 32 knots, so no warp
-//           diverges); the stages of csrc/kkt_stages.cuh, with the knots'
+//   staged  (indy7's default; compiled only for a plant whose header has
+//           the staged KKT, GATO_KKT_STAGES) a CTA takes KNOTS = 32
+//           consecutive knots of the flattened (B, N) grid and G =
+//           KKT_GROUPS = 2 threads per knot, part-major (warp P runs
+//           part P of the 32 knots, so no warp diverges); the stages of csrc/kkt_stages.cuh, with the knots'
 //           inputs, qdd and Minv and every output in shared memory (Q as
 //           its nonzero blocks), then the outputs leave in coalesced stores
 //           (a warp's 32 threads on 32 consecutive floats of one output
 //           tensor).
-//   one     the earlier kernel, taken only when forced (for measurements):
-//           one thread per knot runs the whole generated knot_kkt and
-//           writes its rows itself.
+//   one     the earlier kernel, one thread per knot runs the whole
+//           generated knot_kkt and writes its rows itself: iiwa14's
+//           default (its header has no staged KKT), taken for indy7 only
+//           when forced (for measurements).
 //
-// Bound: bytes, about 1.7 KB of outputs a knot. The one-thread kernel runs
-// 13.2k lines of straight-line code a thread, spills (255 registers) and
-// stores uncoalesced rows. The staged one runs the 3.1k-line primal, then
+// Bound: bytes, about 1.7 KB of outputs a knot (2.3 KB for iiwa14). The
+// one-thread kernel runs 12.1k (indy7) or 13.3k (iiwa14) operations of
+// straight-line code a thread, spills (255 registers) and stores
+// uncoalesced rows. The staged one runs the 3.1k-line primal, then
 // a part of the tangent columns (about 5k lines at G = 2), without spills;
 // what bounds it is that critical path of straight-line code per CTA and
 // the waves: at G = 2 a CTA (64 threads, 255 registers, 48 KB of shared
@@ -34,7 +38,10 @@
 // (shorter parts, three and two CTAs an SM, two waves) were slower.
 #include <cuda_runtime.h>
 
+#include "robot.cuh"
+#ifdef GATO_KKT_STAGES
 #include "kkt_stages.cuh"
+#endif
 
 namespace gato {
 
@@ -64,8 +71,7 @@ struct KktArgs {
 
 namespace {
 
-namespace robot = gato::indy7;
-using gato::kkt_stages::DYN_FLOATS;
+namespace robot = gato::robot;
 constexpr int NQ = robot::NQ;
 constexpr int NX = robot::NX;
 constexpr int NU = NQ;
@@ -125,6 +131,8 @@ __global__ void __launch_bounds__(128) kkt_one_kernel(const gato::KktArgs a) {
 
 // ------------------------------------------------------------- "staged" --
 
+#ifdef GATO_KKT_STAGES
+using gato::kkt_stages::DYN_FLOATS;
 constexpr int KNOTS = 32;       // knots of one CTA: one per lane of each part's warp
 constexpr int KKT_GROUPS = 2;  // threads per knot (ops/cuda_kkt.py mirrors it)
 
@@ -262,16 +270,24 @@ __global__ void __launch_bounds__(KNOTS* G) kkt_staged_kernel(const gato::KktArg
   });
   store_rows<NU>(a.r, n, lrow, [&](int t, int j) { return sm[O_RV + t * SRV + j]; });
 }
+#endif  // GATO_KKT_STAGES
 
 using KktKernel = void (*)(gato::KktArgs);
 
 // the kernel, threads and dynamic shared memory of a variant (0: "one",
-// KKT_GROUPS: staged); null for a variant not compiled
+// KKT_GROUPS: staged, where the plant has the staged KKT); null for a
+// variant not compiled
 KktKernel kkt_variant(int variant, int* threads, size_t* smem) {
-  *threads = variant == 0 ? 128 : KNOTS * KKT_GROUPS;
-  *smem = variant == 0 ? 0 : STAGED_SMEM;
+  *threads = 128;
+  *smem = 0;
   if (variant == 0) return kkt_one_kernel;
+#ifdef GATO_KKT_STAGES
+  *threads = KNOTS * KKT_GROUPS;
+  *smem = STAGED_SMEM;
   return variant == KKT_GROUPS ? kkt_staged_kernel<KKT_GROUPS> : nullptr;
+#else
+  return nullptr;
+#endif
 }
 
 int prepare(int variant, KktKernel* kernel, int* threads, size_t* smem) {
@@ -302,16 +318,16 @@ extern "C" int gato_kkt_blocks_per_sm(int variant) {
   return n;
 }
 
-// Launch a variant (0: "one"; KKT_GROUPS: staged). A
+// Launch a variant (0: "one"; KKT_GROUPS: staged, where compiled). A
 // launch that the card refuses returns its error; nothing falls back.
-extern "C" int gato_kkt_indy7(const gato::KktArgs* args, int variant, void* stream) {
+extern "C" int GATO_ENTRY(gato_kkt)(const gato::KktArgs* args, int variant, void* stream) {
   KktKernel kernel;
   int threads;
   size_t smem;
   const int err = prepare(variant, &kernel, &threads, &smem);
   if (err != 0) return err;
   const long long knots = (long long)args->B * args->N;
-  const long long per_block = variant == 0 ? threads : KNOTS;
+  const long long per_block = variant == 0 ? threads : threads / variant;
   const int blocks = (int)((knots + per_block - 1) / per_block);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());

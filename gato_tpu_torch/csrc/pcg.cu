@@ -10,26 +10,33 @@
 // problem reports 0 and keeps its warm start; each knot's partial of a dot
 // product is clamped to 1e30 before the sum over knots.
 //
-// Bound: every Krylov iteration's two matvecs read three 12x12 blocks per
-// knot (S or P, main and the two lower ones), 432 floats a knot, for one
-// multiply-add per float read. The blocks (2,304 bytes a knot) are read
-// from device memory once by any design; what decides the time is where
-// the loop re-reads them, how many threads share a knot and how many
-// barriers an iteration waits at. The kernel comes in three variants
-// (ops/cuda_pcg.py::pcg_variant picks one by N):
+// Compiled once per plant (csrc/robot.cuh), for indy7 (NX = 12) and iiwa14
+// (NX = 14): entry points gato_pcg_<plant>; the layouts below take the
+// plant's NX, and the wrapper picks the library by the system's nx.
+//
+// Bound: every Krylov iteration's two matvecs read three NX x NX blocks per
+// knot (S or P, main and the two lower ones), 3 NX^2 floats a knot (432 for
+// indy7, 588 for iiwa14), for one multiply-add per float read. The blocks
+// (16 NX^2 bytes a knot) are read from device memory once by any design;
+// what decides the time is where the loop re-reads them, how many threads
+// share a knot and how many barriers an iteration waits at. The kernel
+// comes in three variants (ops/cuda_pcg.py::pcg_variant picks one by N and
+// the plant):
 //   shared   one thread block (CTA) per problem. A coalesced, transposing
 //            copy puts the problem's four blocks per knot (S_main, S_lower,
 //            P_main, P_lower) into dynamic shared memory, element-major:
 //            element e of the knot in slot s at e * stride + s, the stride
 //            odd so that the copy's stores spread over the banks; in the
 //            loop a warp's consecutive knots read consecutive banks. G
-//            threads share a knot, each holding rows [12g/G, 12(g+1)/G) of
+//            threads share a knot (G divides NX: 1, 2, 4 for indy7; 1, 2,
+//            7 for iiwa14), each holding rows [NX g/G, NX(g+1)/G) of
 //            lam, r, p, z and Ap in registers; r and p also go to shared
 //            memory for the neighbours' matvecs. Dot products sum each
 //            group's rows, the G partials in order, clamp the knot's term
 //            and sum the knots in one order on every warp
 //            (krylov.cuh::knot_total), so alpha, beta and the exit are the
-//            same in every thread. It fits 232,448 bytes up to N = 95.
+//            same in every thread. It fits 232,448 bytes up to N = 95
+//            (indy7) or 71 (iiwa14).
 //   cluster  past that, one thread-block cluster of C CTAs per problem: CTA
 //            rank j holds knots [j n, (j + 1) n), n = ceil(N / C), with
 //            their blocks in its own shared memory, plus a halo: the lower
@@ -61,6 +68,7 @@
 
 #include "block_ops.cuh"
 #include "krylov.cuh"
+#include "robot.cuh"
 
 namespace gato {
 
@@ -93,9 +101,9 @@ namespace {
 namespace cg = cooperative_groups;
 using gato::block_sum;
 using gato::clamp_term;
-// indy7's state size, the only plant pcg is built for (_build.KERNELS); the
-// wrapper (ops/cuda_pcg.py) refuses another nx, and so does gato_pcg
-constexpr int NX = 12;
+// the state size of the plant this library is built for (csrc/robot.cuh);
+// gato_pcg_<plant> refuses a system of another nx
+constexpr int NX = gato::robot::NX;
 constexpr int BLK = NX * NX;
 enum Layout { kGlobal = 0, kShared = 1, kCluster = 2 };
 
@@ -251,7 +259,7 @@ Kernel global_kernel(int N, int* threads, size_t* smem) {
 constexpr int SB_SM = 0, SB_SL = BLK, SB_PM = 2 * BLK, SB_PL = 3 * BLK;
 constexpr int SB_FLOATS = 4 * BLK;
 constexpr int MISC_FLOATS = 8;      // a CTA's totals for the cluster sums
-constexpr int SMEM_THREADS = 384;   // G W <= 4 x 96; 168 registers a thread
+constexpr int SMEM_THREADS = 384;   // G W <= 4 x 96 (indy7), 2 x 96 or 7 x 32 (iiwa14)
 
 __host__ __device__ inline int warp_threads(int n) { return 32 * ((n + 31) / 32); }
 
@@ -526,14 +534,25 @@ __global__ void __launch_bounds__(SMEM_THREADS) pcg_smem_kernel(const gato::PcgA
   if constexpr (kCl) cg::this_cluster().sync();
 }
 
-// The compiled variants: shared and cluster at G = 1, 2, 4; null otherwise.
+// shared or cluster at G, compiled where G divides NX; null otherwise
+template <int G>
+Kernel smem_variant(bool cl) {
+  if constexpr (NX % G == 0)
+    return cl ? pcg_smem_kernel<G, true> : pcg_smem_kernel<G, false>;
+  else
+    return nullptr;
+}
+
+// The compiled variants: shared and cluster at each G in {1, 2, 4, 7} that
+// divides NX (1, 2, 4 for indy7; 1, 2, 7 for iiwa14); null otherwise.
 Kernel smem_kernel(int layout, int G) {
   const bool cl = layout == kCluster;
   if (layout != kShared && !cl) return nullptr;
   switch (G) {
-    case 1: return cl ? pcg_smem_kernel<1, true> : pcg_smem_kernel<1, false>;
-    case 2: return cl ? pcg_smem_kernel<2, true> : pcg_smem_kernel<2, false>;
-    case 4: return cl ? pcg_smem_kernel<4, true> : pcg_smem_kernel<4, false>;
+    case 1: return smem_variant<1>(cl);
+    case 2: return smem_variant<2>(cl);
+    case 4: return smem_variant<4>(cl);
+    case 7: return smem_variant<7>(cl);
     default: return nullptr;
   }
 }
@@ -541,13 +560,14 @@ Kernel smem_kernel(int layout, int G) {
 // A variant's kernel, launch configuration and bytes at horizon N, batch B,
 // with the kernel's shared-memory attributes set. C is 1 in the shared
 // variant and 2, 4, 8 or 16 in the cluster one, where every CTA must hold
-// at least one knot; 16 is not portable and is allowed explicitly. Returns
-// a CUDA error code.
+// at least one knot and G W threads at most SMEM_THREADS; 16 is not
+// portable and is allowed explicitly. Returns a CUDA error code.
 int configure(int N, int B, int layout, int G, int C, void* stream, Kernel* kernel,
               cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   *kernel = smem_kernel(layout, G);
   const bool size_ok = layout == kShared ? C == 1 : (C == 2 || C == 4 || C == 8 || C == 16);
-  if (*kernel == nullptr || !size_ok || N < 1 || (C - 1) * cta_knots(N, C) >= N)
+  if (*kernel == nullptr || !size_ok || N < 1 || (C - 1) * cta_knots(N, C) >= N ||
+      G * warp_threads(cta_knots(N, C)) > SMEM_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(N, G, C);
   cudaError_t err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -603,9 +623,9 @@ int launch(const gato::PcgArgs* a, void* stream) {
 
 }  // namespace
 
-// Another nx than NX, or a variant that is not compiled or does not fit,
-// returns a CUDA error code; nothing falls back to another variant.
-extern "C" int gato_pcg(const gato::PcgArgs* args, int nx, void* stream) {
+// Another nx than the plant's NX, or a variant that is not compiled or does
+// not fit, returns a CUDA error code; nothing falls back to another variant.
+extern "C" int GATO_ENTRY(gato_pcg)(const gato::PcgArgs* args, int nx, void* stream) {
   if (nx != NX) return static_cast<int>(cudaErrorInvalidValue);
   return launch(args, stream);
 }

@@ -61,6 +61,7 @@ header also compiles as host C++ (tests/test_torch_codegen.py).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import re
@@ -238,6 +239,36 @@ def _gen_fd(cd, nq):
     qdd = cd.fd(cs, ss, qd, u, f_ext=fe)
     sig = ("fd(const T* q, const T* qd, const T* u, const T* fe, T* qdd)")
     return _func(em, sig, [(f"qdd[{i}]", qdd[i]) for i in range(nq)])
+
+
+def _sqrt(x):
+    """torch's square root, also of a numpy channel (numpy's rounds some
+    float32 values otherwise)."""
+    if isinstance(x, np.ndarray):
+        return torch.sqrt(torch.from_numpy(x)).numpy()
+    return torch.sqrt(x)
+
+
+@functools.lru_cache(maxsize=None)
+def fd_program(key: str, with_fe: bool):
+    """cd.fd of the plant registered under `key`, with a wrench or without,
+    as one straight-line Python function fd(cs, ss, qd, u, fe) -> qdd on
+    numpy or torch channels: the trace's lines (Python as they are, with T
+    = float and gsqrt the channel's square root) in the order cd.fd runs
+    them, so every value equals the traced call's bit for bit. The trace
+    (its constant folding and the channel algebra's dispatch) runs once,
+    not at every call."""
+    cd = _get_cd(key)
+    em = Emitter()
+    cs, ss, qd, u = (_inputs(em, name, cd.nq) for name in ("cs", "ss", "qd", "u"))
+    qdd = cd.fd(cs, ss, qd, u, f_ext=_inputs(em, "fe", 6) if with_fe else None)
+    need = em.live(qdd)
+    body = [f"    {name} = {expr}" for name, expr, _ in em.lines if name in need]
+    out = ", ".join(ch.name if isinstance(ch, Sym) else repr(ch) for ch in qdd)
+    src = "def fd(cs, ss, qd, u, fe):\n" + "\n".join(body) + f"\n    return [{out}]\n"
+    scope = {"T": float, "gsqrt": _sqrt}
+    exec(compile(src, f"<fd_program {key}>", "exec"), scope)
+    return scope["fd"]
 
 
 def _knot_args(em, nq):

@@ -96,7 +96,7 @@ def iteration_variant(N: int, nx: int = 12) -> tuple[str, int]:
     return "global", 1
 
 
-def phase_a_default(layout: str, groups: int, nx: int = 12) -> str:
+def phase_a_default(layout: str, groups: int, nx: int) -> str:
     """Phase A's KKT in a variant: "staged" (the G threads of a knot share
     knot_kkt's stages) where the variant is the plant's STAGED_A, else
     "one" (thread k of group 0 runs all of knot_kkt). "one" at STAGED_A is

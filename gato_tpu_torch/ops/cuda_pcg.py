@@ -5,13 +5,17 @@ Port of gato_tpu/ops/pallas_pcg.py. The plain version is
 ops/pcg.py::pcg_solve_batched; `pcg_solve_batched_cuda` launches
 csrc/pcg.cu on a CUDA tensor and runs the plain version on a CPU tensor.
 
-The kernel comes in three variants, (layout, G, C) with G threads per knot
-and C thread blocks (CTAs) per problem; `pcg_variant(N)` picks one:
+The kernel is built for indy7 (nx = 12) and iiwa14 (nx = 14), one library
+each (_build.KERNELS); the wrapper has no model and takes the library of
+the plant whose nx the system has (PLANT_OF_NX). It comes in three
+variants, (layout, G, C) with G threads per knot and C thread blocks (CTAs)
+per problem; `pcg_variant(N, nx)` picks one:
 
-  shared   one CTA per problem, its blocks in shared memory, N <= SHARED_MAX_N;
+  shared   one CTA per problem, its blocks in shared memory, N <=
+           SHARED_MAX_N[nx];
   cluster  one thread-block cluster of C CTAs per problem, each CTA holding
            a contiguous range of knots and the lower blocks of the knot
-           before it (the halo), past SHARED_MAX_N;
+           before it (the halo), past SHARED_MAX_N[nx];
   global   one CTA per problem, one thread per knot, the blocks in a global
            scratch (the earlier design, the comparison arm of chip_smoke.py).
 """
@@ -27,21 +31,25 @@ from .cuda_sim import ROADMAP_ITEM, check_cuda
 from .pcg import pcg_solve_batched
 
 MAX_KNOTS = 1024  # the global variant: one thread per knot, one CTA a problem
-NX = 12  # compiled for indy7's state size only (_build.KERNELS)
-BLOCK_FLOATS = 4 * NX * NX  # S_main, S_lower, P_main, P_lower of one knot
-MISC_FLOATS = 8 + 4 * NX  # a CTA's totals for the cluster sums, halo rows
+# the plant whose library serves a system of state size nx
+PLANT_OF_NX = {12: "indy7", 14: "iiwa14"}
 SMEM_LIMIT = 232_448  # dynamic shared memory of one CTA on sm_90
+SMEM_THREADS = 384  # csrc/pcg.cu's __launch_bounds__ of the shared and cluster variants
 LAYOUTS = {"global": 0, "shared": 1, "cluster": 2}
-GROUPS = (1, 2, 4)  # G, compiled for the shared and cluster variants
+# G compiled for the shared and cluster variants, by nx: those of 1, 2, 4,
+# 7 that divide it (csrc/pcg.cu::smem_kernel)
+GROUPS = {12: (1, 2, 4), 14: (1, 2, 7)}
 CLUSTER_SIZES = (2, 4, 8, 16)  # C of the cluster variant; 16 is not portable
 PORTABLE_CLUSTER = 8
-# the shared variant's last N (the last that fits) and its G; the cluster
-# variant's G, and the last N of its 4-CTA clusters (8 CTAs past it while
-# their knots fit, then 16): the fastest in chip_smoke.py's timings
-# (PERF.md section 6)
-SHARED_MAX_N = 95
-SHARED_GROUPS = 4
-CLUSTER_GROUPS = 4
+# by nx: the shared variant's last N (the last that fits at its G) and its
+# G; the cluster variant's G. indy7's are the fastest in chip_smoke.py's
+# timings (PERF.md section 6); iiwa14's take the same rule (G = 2, as its
+# iteration kernels' shared layout), each cut where it stops fitting
+SHARED_MAX_N = {12: 95, 14: 71}
+SHARED_GROUPS = {12: 4, 14: 2}
+CLUSTER_GROUPS = {12: 4, 14: 2}
+# the last N of the 4-CTA clusters (8 CTAs past it while their knots fit,
+# then 16), both plants
 CLUSTER4_MAX_N = 128
 
 
@@ -70,16 +78,19 @@ def slot_stride(N: int, C: int) -> int:
     return (cta_knots(N, C) + (2 if C > 1 else 0)) | 1
 
 
-def smem_bytes(N: int, layout: str, groups: int = 1, cluster: int = 1) -> int:
-    """Dynamic shared memory of one CTA, the formula of
-    csrc/pcg.cu::smem_bytes: the four 12x12 blocks and r, p in every slot,
-    two buffers of one dot partial per thread, the totals; the global
-    variant holds lam, r and p of every knot and 32 warp partials."""
+def smem_bytes(N: int, layout: str, groups: int = 1, cluster: int = 1, *,
+               nx: int) -> int:
+    """Dynamic shared memory of one CTA for a system of state size nx, the
+    formula of csrc/pcg.cu::smem_bytes: the four nx x nx blocks (S_main,
+    S_lower, P_main, P_lower) and r, p in every slot, two buffers of one dot
+    partial per thread, 8 totals for the cluster sums and 4 nx floats of
+    halo rows; the global variant holds lam, r and p of every knot and 32
+    warp partials."""
     if layout == "global":
-        return 4 * (3 * N * NX + 32)
+        return 4 * (3 * N * nx + 32)
     S = slot_stride(N, cluster)
-    return 4 * ((BLOCK_FLOATS + 2 * NX) * S
-                + 2 * groups * warp_threads(cta_knots(N, cluster)) + MISC_FLOATS)
+    return 4 * ((4 * nx * nx + 2 * nx) * S
+                + 2 * groups * warp_threads(cta_knots(N, cluster)) + 8 + 4 * nx)
 
 
 def threads(N: int, layout: str, groups: int = 1, cluster: int = 1) -> int:
@@ -89,29 +100,44 @@ def threads(N: int, layout: str, groups: int = 1, cluster: int = 1) -> int:
     return groups * warp_threads(cta_knots(N, cluster))
 
 
-def fits(N: int, layout: str, groups: int = 1, cluster: int = 1) -> bool:
-    """Whether a variant can run at horizon N: its shared memory within
-    SMEM_LIMIT, and in a cluster every CTA holding at least one knot."""
+def fits(N: int, layout: str, groups: int = 1, cluster: int = 1, *, nx: int) -> bool:
+    """Whether a variant can run at horizon N for a system of state size
+    nx: its G compiled for nx, its shared memory within SMEM_LIMIT, its G W
+    threads within SMEM_THREADS, and in a cluster every CTA holding at least
+    one knot."""
     if layout == "global":
         return 1 <= N <= MAX_KNOTS
-    if layout == "shared" and cluster != 1:
+    if groups not in GROUPS[nx] or (layout == "shared" and cluster != 1):
         return False
     if layout == "cluster" and (cluster not in CLUSTER_SIZES
                                 or (cluster - 1) * cta_knots(N, cluster) >= N):
         return False
-    return smem_bytes(N, layout, groups, cluster) <= SMEM_LIMIT
+    return (smem_bytes(N, layout, groups, cluster, nx=nx) <= SMEM_LIMIT
+            and threads(N, layout, groups, cluster) <= SMEM_THREADS)
 
 
-def pcg_variant(N: int) -> tuple[str, int, int]:
-    """(layout, G, C) of the pcg kernel at horizon N <= MAX_KNOTS: the
-    shared variant up to SHARED_MAX_N; past it a cluster of 4 CTAs up to
-    CLUSTER4_MAX_N, of 8 while their knots fit a CTA, of 16 past that. Not
-    a user setting: N decides."""
-    if N <= SHARED_MAX_N:
-        return "shared", SHARED_GROUPS, 1
+def _plant(nx: int) -> str:
+    """The plant whose pcg library serves a system of state size nx;
+    NotImplementedError naming the ROADMAP item for any other nx."""
+    if nx not in PLANT_OF_NX:
+        raise NotImplementedError(f"the pcg kernel is built for nx in {tuple(PLANT_OF_NX)} "
+                                  f"({', '.join(PLANT_OF_NX.values())}), got nx={nx} "
+                                  f"({ROADMAP_ITEM})")
+    return PLANT_OF_NX[nx]
+
+
+def pcg_variant(N: int, nx: int) -> tuple[str, int, int]:
+    """(layout, G, C) of the pcg kernel at horizon N <= MAX_KNOTS for a
+    system of state size nx: the shared variant up to SHARED_MAX_N[nx]; past
+    it a cluster of 4 CTAs up to CLUSTER4_MAX_N, of 8 while their knots fit
+    a CTA, of 16 past that. Not a user setting: N and the plant decide."""
+    _plant(nx)
+    if N <= SHARED_MAX_N[nx]:
+        return "shared", SHARED_GROUPS[nx], 1
+    g = CLUSTER_GROUPS[nx]
     if N <= CLUSTER4_MAX_N:
-        return "cluster", CLUSTER_GROUPS, 4
-    return "cluster", CLUSTER_GROUPS, 8 if fits(N, "cluster", CLUSTER_GROUPS, 8) else 16
+        return "cluster", g, 4
+    return "cluster", g, 8 if fits(N, "cluster", g, 8, nx=nx) else 16
 
 
 class _PcgArgs(ctypes.Structure):
@@ -124,39 +150,43 @@ class _PcgArgs(ctypes.Structure):
             "B", "N", "max_iters", "layout", "groups", "cluster")])
 
 
-def _library():
-    lib = load_library("pcg")
-    lib.gato_pcg.argtypes = [ctypes.POINTER(_PcgArgs), ctypes.c_int, ctypes.c_void_p]
-    lib.gato_pcg.restype = ctypes.c_int
+def _library(nx: int):
+    """(the library of the plant of state size nx, its launch entry)."""
+    plant = _plant(nx)
+    lib = load_library("pcg", plant)
+    entry = getattr(lib, f"gato_pcg_{plant}")
+    entry.argtypes = [ctypes.POINTER(_PcgArgs), ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
     lib.gato_pcg_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.gato_pcg_smem_bytes.restype = ctypes.c_longlong
     lib.gato_pcg_occupancy.argtypes = ([ctypes.c_int] * 5
                                        + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.gato_pcg_occupancy.restype = ctypes.c_int
-    return lib
+    return lib, entry
 
 
 def library_smem_bytes(N: int, layout: str, groups: int = 1,
-                       cluster: int = 1) -> int:
-    """smem_bytes as the compiled library computes it."""
-    return _library().gato_pcg_smem_bytes(N, LAYOUTS[layout], groups, cluster)
+                       cluster: int = 1, *, nx: int) -> int:
+    """smem_bytes as the compiled library of the plant of state size nx
+    computes it."""
+    return _library(nx)[0].gato_pcg_smem_bytes(N, LAYOUTS[layout], groups, cluster)
 
 
 def variant_resources(N: int, B: int, layout: str, groups: int = 1,
-                      cluster: int = 1):
+                      cluster: int = 1, *, nx: int):
     """(shared-memory bytes of one CTA, resident CTAs per SM, clusters the
     card holds at once or -1 outside the cluster variant) of a variant at
-    horizon N, batch B, as the library reports them
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    horizon N, batch B, for a system of state size nx, as the library
+    reports them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     cudaOccupancyMaxActiveClusters). Raises on a CUDA error."""
-    lib = _library()
+    lib = _library(nx)[0]
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.gato_pcg_occupancy(N, B, LAYOUTS[layout], groups, cluster,
                                  ctypes.byref(per_sm), ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f"pcg {layout} G={groups} C={cluster} at N={N}: "
                            f"CUDA error {err}")
-    return library_smem_bytes(N, layout, groups, cluster), per_sm.value, clusters.value
+    return library_smem_bytes(N, layout, groups, cluster, nx=nx), per_sm.value, clusters.value
 
 
 def pcg_solve_batched_cuda(S_main, S_lower, P_main, P_lower, gamma, lam0,
@@ -167,19 +197,18 @@ def pcg_solve_batched_cuda(S_main, S_lower, P_main, P_lower, gamma, lam0,
     Returns (lam, iterations (B,) int32).
 
     CUDA kernel: csrc/pcg.cu, replacing gato_tpu/ops/pallas_pcg.py::
-    _pcg_kernel. Each Krylov iteration reads three 12x12 blocks a knot; the
-    shared and cluster variants hold the blocks in shared memory, G threads
-    per knot, so the loop's traffic stays on the SM (see the module
-    docstring). `variant` (layout, G, C) names the variant for a
-    measurement; None takes pcg_variant(N). A variant that the card refuses
-    raises."""
+    _pcg_kernel, from the library of the plant whose state size is gamma's
+    nx (12: indy7, 14: iiwa14; another nx raises NotImplementedError).
+    Each Krylov iteration reads three nx x nx blocks a knot; the shared and
+    cluster variants hold the blocks in shared memory, G threads per knot,
+    so the loop's traffic stays on the SM (see the module docstring).
+    `variant` (layout, G, C) names the variant for a measurement; None
+    takes pcg_variant(N, nx). A variant that the card refuses raises."""
     if gamma.device.type == "cpu":
         return pcg_solve_batched(S_main, S_lower, P_main, P_lower, gamma,
                                  lam0, epsilon, max_iters, skip)
     B, N, nx = gamma.shape
-    if nx != NX:
-        raise NotImplementedError(f"the pcg kernel is built for nx = {NX} (indy7) "
-                                  f"only, got nx={nx} ({ROADMAP_ITEM})")
+    _plant(nx)
     if not 1 <= N <= MAX_KNOTS:
         raise ValueError(f"pcg kernel takes 1 <= N <= {MAX_KNOTS}, got N={N}")
     for name, t, shape in (
@@ -193,16 +222,16 @@ def pcg_solve_batched_cuda(S_main, S_lower, P_main, P_lower, gamma, lam0,
     if not (skip.is_cuda and skip.dtype == torch.bool and skip.shape == (B,)
             and skip.is_contiguous()):
         raise ValueError("skip: expected a contiguous (B,) bool CUDA tensor")
-    layout, groups, cluster = variant or pcg_variant(N)
+    layout, groups, cluster = variant or pcg_variant(N, nx)
     lam = torch.empty_like(lam0)
     iters = torch.empty(B, dtype=torch.int32, device=gamma.device)
     scratch = (torch.empty(B * 4 * nx * nx * N, dtype=torch.float32,
                            device=gamma.device) if layout == "global" else None)
+    entry = _library(nx)[1]
     args = _PcgArgs(*[None if t is None else t.data_ptr() for t in (
         S_main, S_lower, P_main, P_lower, gamma, lam0, epsilon, skip, lam,
         iters, scratch)], B, N, max_iters, LAYOUTS[layout], groups, cluster)
-    err = _library().gato_pcg(ctypes.byref(args), nx,
-                              torch.cuda.current_stream(gamma.device).cuda_stream)
+    err = entry(ctypes.byref(args), nx, torch.cuda.current_stream(gamma.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pcg kernel launch ({layout}, G={groups}, "
                            f"C={cluster}, N={N}) failed: CUDA error {err}")

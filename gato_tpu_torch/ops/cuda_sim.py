@@ -1,7 +1,8 @@
 """Batched RK4 plant step: the CUDA kernel csrc/rk4.cu and its plain version.
 
 Port of gato_tpu/ops/pallas_sim.py. `rk4_channels` is the plain PyTorch
-version (the same channel trace the TPU kernel body runs);
+version (the same channel trace the TPU kernel body runs; `rk4_plain` runs
+it on a tensor's columns);
 `rk4_step_batched` is the kernel wrapper: on a CUDA tensor it launches
 csrc/rk4.cu, on a CPU tensor it runs the plain version.
 """
@@ -11,22 +12,21 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .._build import KERNELS, load_library, register_plant
 from ..dynamics import mathshim as ms
 from ..robots.model import RobotModel
-from .merit_fast import _get_cd
 
 # the plants with a committed header that each kernel is built for,
-# {kernel: plants}: bsqp_iter, iter, merit and rk4 for indy7 and iiwa14,
-# kkt and pcg for indy7 (_build.KERNELS)
+# {kernel: plants}: every kernel for indy7 and iiwa14 (_build.KERNELS)
 CUDA_ROBOTS = KERNELS
 # the kernels that also serve a plant built by api/mpc.py::add_pendulum from
 # one of their plants, from a header generated at first use
 # (require_cuda_robot)
 PENDULUM_KERNELS = ("rk4",)
-ROADMAP_ITEM = "ROADMAP Queue 2, the plants still to port"
+ROADMAP_ITEM = "ROADMAP Queue 2: no library of this kernel is built for the plant"
 # the rk4 kernel's variants (csrc/rk4.cu): "one", the default, one thread
 # per problem; "crba", only when forced, spreads each forward dynamics call
 # over two warps (CRBA beside the RNEA bias, fd's own expressions): about
@@ -39,16 +39,24 @@ VARIANTS = ("one", "crba")
 CODES = {"one": 0, "crba": 1}
 
 
-def rk4_channels(cd, q, qd, u, fe, dt, substeps):
+def _numpy_cos(x):
+    return torch.cos(torch.from_numpy(x)).numpy()
+
+
+def _numpy_sin(x):
+    return torch.sin(torch.from_numpy(x)).numpy()
+
+
+def rk4_channels(fd, q, qd, u, fe, dt, substeps, cos=ms.cos, sin=ms.sin):
     """RK4 integration on dynamics channels: q/qd/u are nq-length channel
-    lists, fe a 6-length channel list or None."""
-    nq = cd.nq
+    lists, fe a 6-length channel list or None, fd(cs, ss, qd, u, fe) -> qdd
+    the forward dynamics (a ChannelizedDynamics' fd, or its straight-line
+    program, dynamics/codegen.py::fd_program), cos and sin a channel's."""
+    nq = len(q)
     h = dt / substeps
 
     def deriv(q, qd):
-        cs = [ms.cos(x) for x in q]
-        ss = [ms.sin(x) for x in q]
-        qdd = cd.fd(cs, ss, qd, u, f_ext=fe)
+        qdd = fd([cos(x) for x in q], [sin(x) for x in q], qd, u, fe)
         return qd, qdd
 
     def axpy(x, a, y):
@@ -69,13 +77,30 @@ def rk4_channels(cd, q, qd, u, fe, dt, substeps):
 
 def rk4_plain(model: RobotModel, x, u, dt: float, f_ext=None,
               substeps: int = 1):
-    """rk4_channels on the columns of x (B, nx), u (B, nu), f_ext (B, 6)."""
-    cd = _get_cd(model.key)
-    nq = cd.nq
-    fe = None if f_ext is None else [f_ext[:, i] for i in range(6)]
-    q, qd = rk4_channels(cd, [x[:, i] for i in range(nq)],
-                         [x[:, nq + i] for i in range(nq)],
-                         [u[:, i] for i in range(nq)], fe, dt, substeps)
+    """rk4_channels on the columns of x (B, nx), u (B, nu), f_ext (B, 6),
+    the forward dynamics the channel trace's straight-line program
+    (dynamics/codegen.py::fd_program). On the CPU the channels are numpy
+    views of the columns, cos and sin still torch's: the same operations on
+    the same float type, so the values equal torch channels' bit for bit,
+    without torch's cost a call on these small columns."""
+    from ..dynamics.codegen import fd_program
+
+    fd = fd_program(model.key, f_ext is not None)
+    nq = model.nq
+    if x.device.type == "cpu":
+        def col(t, i):
+            return t[:, i].numpy()
+        trig = dict(cos=_numpy_cos, sin=_numpy_sin)
+    else:
+        def col(t, i):
+            return t[:, i]
+        trig = {}
+    fe = None if f_ext is None else [col(f_ext, i) for i in range(6)]
+    q, qd = rk4_channels(fd, [col(x, i) for i in range(nq)],
+                         [col(x, nq + i) for i in range(nq)],
+                         [col(u, i) for i in range(nq)], fe, dt, substeps, **trig)
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.stack(q + qd, 1))
     return torch.stack(q + qd, 1)
 
 
@@ -118,8 +143,8 @@ def require_cuda_robot(model: RobotModel, kernel: str) -> str:
     generated header, which hashes the registered constants, so another
     mass or length gets a library of its own. Raises NotImplementedError,
     naming the kernel and the ROADMAP item, for a plant that `kernel` does
-    not serve: iiwa14 on kkt and pcg, the pendulum-augmented plants on
-    every kernel but rk4, any other plant (a URDF path) on every kernel."""
+    not serve: the pendulum-augmented plants on every kernel but rk4, any
+    other plant (a URDF path) on every kernel."""
     if model.name in CUDA_ROBOTS[kernel]:
         return model.name
     if _is_pendulum_plant(model, kernel):

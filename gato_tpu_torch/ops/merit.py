@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..dynamics.algorithms import fd, fk, joint_transforms
-from ..robots.model import RobotModel
+from ..robots.model import RobotModel, check_device
 from .cost import CostParams, barrier, effective_limits, knot_cost
 from .integrators import integrate
 
@@ -69,6 +69,7 @@ def merit_alphas(model: RobotModel, cp: CostParams, X, U, dZX, dZU, x_s, ref,
                        dt, integrator_type)
 
 
-def default_alphas(num_alphas: int = 8, dtype=torch.float32, device="cpu"):
-    """alpha_j = 2^-j (merit.cuh:40)."""
-    return 0.5 ** torch.arange(num_alphas, dtype=dtype, device=device)
+def default_alphas(num_alphas: int = 8, dtype=torch.float32, device="cuda"):
+    """alpha_j = 2^-j (merit.cuh:40), on the card unless `device` says
+    otherwise (robots/model.py::check_device raises without one)."""
+    return 0.5 ** torch.arange(num_alphas, dtype=dtype, device=check_device(device))

@@ -23,6 +23,7 @@ over B problems. Math, for lambda ordered as one nx-block per knot (block 0
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -51,12 +52,39 @@ def mv(a, x):
     return (a @ x.unsqueeze(-1)).squeeze(-1)
 
 
+# spd_inv's inverse from the Cholesky factor: torch.cholesky_inverse, or
+# within capturable_inverse() two triangular solves against the identity
+_TRIANGULAR = [False]
+
+
+@contextlib.contextmanager
+def capturable_inverse():
+    """Inside the block spd_inv inverts by two triangular solves against
+    the identity (the JAX package's chol_inv form), which a CUDA graph can
+    capture: on the card torch.cholesky_inverse of a batch takes MAGMA's
+    batched potrs, which a graph cannot. The two forms round differently,
+    so a graph captured within the block equals the eager cycles run within
+    it (examples/mixed_fleet.py::device_cycle_time); outside, every route
+    keeps cholesky_inverse."""
+    taken = _TRIANGULAR[0]
+    _TRIANGULAR[0] = True
+    try:
+        yield
+    finally:
+        _TRIANGULAR[0] = taken
+
+
 def spd_inv(M):
     """Inverse of SPD blocks by Cholesky. A block that is not positive
-    definite (a diverged problem) comes out non-finite instead of raising,
-    so one problem cannot stop the batch."""
+    definite (a diverged problem) does not raise: its own inverse is
+    meaningless and the other blocks keep theirs, so one problem cannot
+    stop the batch."""
     L, _ = torch.linalg.cholesky_ex(M)
-    return torch.cholesky_inverse(L)
+    if not _TRIANGULAR[0]:
+        return torch.cholesky_inverse(L)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(M.shape)
+    y = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def _halfdiag(n, nq, like):

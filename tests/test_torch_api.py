@@ -32,7 +32,7 @@ from gato_tpu_torch.api.common import world_wrench_to_ee_frame
 from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.interop import MODEL_FIELDS, bsqp_state_from_numpy
-from torch_port_helpers import jax_in_pieces, models, t64
+from torch_port_helpers import jax_in_pieces, jax_kkt_in_pieces, models, t64
 
 B, N = 4, 8
 FACADE = dict(plant_type="indy7", batch_size=B, N=N, dt=0.01, max_sqp_iters=2,
@@ -52,7 +52,8 @@ def _problem(seed):
     return x, ref, XU + rng.uniform(-0.01, 0.01, XU.shape), rng.uniform(-3, 3, (B, 6))
 
 
-def test_bsqp_matches_jax_facade_in_double():
+def test_bsqp_matches_jax_facade_in_double(monkeypatch):
+    jax_kkt_in_pieces(monkeypatch)
     x, ref, XU, fe = _problem(41)
     jb = JBSQP(**FACADE, precision="double")
     jb.set_f_ext_B(fe)

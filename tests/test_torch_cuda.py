@@ -31,10 +31,10 @@ from gato_tpu_torch._build import load_library
 from gato_tpu_torch.ops.cuda_iter import (SMEM_LIMIT, smem_bytes,
                                           sqp_iter_core_cuda,
                                           sqp_iter_core_reference)
-from gato_tpu_torch.ops.cuda_kkt import KKT_GROUPS, setup_kkt_batched_cuda
+from gato_tpu_torch.ops.cuda_kkt import KKT_GROUPS, ONE, setup_kkt_batched_cuda
 from gato_tpu_torch.ops.cuda_merit import VARIANTS as MERIT_VARIANTS
 from gato_tpu_torch.ops.cuda_merit import merit_alphas_batched_cuda
-from gato_tpu_torch.ops.cuda_pcg import (MAX_KNOTS, SHARED_GROUPS,
+from gato_tpu_torch.ops.cuda_pcg import (MAX_KNOTS, PLANT_OF_NX, SHARED_GROUPS,
                                          SHARED_MAX_N, _PcgArgs, fits,
                                          pcg_solve_batched_cuda,
                                          pcg_variant)
@@ -264,16 +264,18 @@ def _launched(wrapper, before):
     assert wrapper.launches == before + 1
 
 
-@pytest.mark.parametrize("variant", [("staged", KKT_GROUPS), ("one", 1)])
+@pytest.mark.parametrize("robot,variant", [("indy7", ("staged", KKT_GROUPS)), ("indy7", ONE),
+                                           ("iiwa14", ONE)])
 @pytest.mark.parametrize("N", (2, 31, 33, 256))
-def test_kkt_and_merit_kernels_match_plain(dev, N, variant):
-    """Every KKTSystem tensor within 1e-4 of its largest |value|, in the
-    staged kkt kernel and the one-thread one, at N=2 (several problems in
-    a CTA), 31 and 33 (knots of two problems in a CTA) and 256; every
+def test_kkt_and_merit_kernels_match_plain(dev, N, robot, variant):
+    """Every KKTSystem tensor within 1e-4 of its largest |value|, in each
+    kkt kernel a plant's library compiles (indy7: the staged kernel and the
+    one-thread one; iiwa14: the one-thread one), at N=2 (several problems
+    in a CTA), 31 and 33 (knots of two problems in a CTA) and 256; every
     (lane, alpha) merit within 1e-5, relative (the merit block loops over
     knots past 128)."""
-    m = load_robot("indy7", torch.float32, dev)
-    p = _problem(dev, 16, N, N)
+    m = load_robot(robot, torch.float32, dev)
+    p = _problem(dev, 16, N, N, m.nq)
     args = (p["X"], p["U"], p["x_s"], p["ref"], p["f_ext"], 0.01)
     before = setup_kkt_batched_cuda.launches
     k = setup_kkt_batched_cuda(m, COST, *args, variant=variant)
@@ -311,27 +313,31 @@ def test_merit_kernel_variants_match_plain(dev, N, variant):
     assert ((mk - mp).abs() / mp.abs()).max() <= 1e-5
 
 
-# the pcg kernel's variants at their edges: the shared variant's last N and
-# the first cluster one, clusters at 256 and 600, the largest N; a 2-CTA
-# cluster at G=2 and the global variant forced
-PCG_CASES = ((SHARED_MAX_N, None), (SHARED_MAX_N + 1, None), (256, None),
-             (600, None), (MAX_KNOTS, None), (150, ("cluster", 2, 2)),
-             (300, ("global", 1, 1)))
+# the pcg kernel's variants at their edges, for each plant's library: the
+# shared variant's last N and the first cluster one, clusters at 256 and
+# 600, the largest N; a 2-CTA cluster at G=2 past the 4-CTA clusters' last
+# N (where its CTAs' knots fit: to N = 186 for indy7, 138 for iiwa14's
+# 14x14 blocks) and the global variant forced
+PCG_CASES = tuple((robot, n, v) for robot, nx, n2 in (("indy7", 12, 150), ("iiwa14", 14, 136))
+                  for n, v in ((SHARED_MAX_N[nx], None), (SHARED_MAX_N[nx] + 1, None),
+                               (256, None), (600, None), (MAX_KNOTS, None),
+                               (n2, ("cluster", 2, 2)), (300, ("global", 1, 1))))
 
 
-@pytest.mark.parametrize("N,variant", PCG_CASES)
-def test_pcg_kernel_matches_plain(dev, N, variant):
-    """A real Schur system at N, in the variant that pcg_variant(N) takes or
-    the one forced: lane 0's warm start holds a NaN (no iterations,
-    max_iters), lane 1 is skipped (0, warm start kept); elsewhere counts
-    within 3 and lam normwise within 1e-3 where the counts agree. A launch
-    that the kernel refuses returns its CUDA error, and the wrapper
-    raises."""
-    m = load_robot("indy7", torch.float32, dev)
-    p = _problem(dev, 8, N, 3 * N)
+@pytest.mark.parametrize("robot,N,variant", PCG_CASES)
+def test_pcg_kernel_matches_plain(dev, robot, N, variant):
+    """A real Schur system of the plant at N, in the variant that
+    pcg_variant(N, nx) takes or the one forced: lane 0's warm start holds a
+    NaN (no iterations, max_iters), lane 1 is skipped (0, warm start kept);
+    elsewhere counts within 3 and lam normwise within 1e-3 where the counts
+    agree. A launch that the kernel refuses returns its CUDA error, and the
+    wrapper raises."""
+    m = load_robot(robot, torch.float32, dev)
+    nx = m.nx
+    p = _problem(dev, 8, N, 3 * N, m.nq)
     kkt = setup_kkt_batched(m, COST, p["X"], p["U"], p["x_s"], p["ref"],
                             p["f_ext"], 0.01)
-    sch = build_schur(kkt, p["rho"], 6)
+    sch = build_schur(kkt, p["rho"], m.nq)
     lam0 = p["lam"].clone()
     lam0[0, N // 2, 3] = float("nan")
     skip = torch.zeros(8, dtype=torch.bool, device=dev)
@@ -343,7 +349,7 @@ def test_pcg_kernel_matches_plain(dev, N, variant):
     lk, ik = pcg_solve_batched_cuda(*system, variant=variant)
     _launched(pcg_solve_batched_cuda, before)
     lp, ip = pcg_solve_batched(*system)
-    print(f"pcg N={N} {variant or pcg_variant(N)}: counts {ik.tolist()}, "
+    print(f"pcg {robot} N={N} {variant or pcg_variant(N, nx)}: counts {ik.tolist()}, "
           f"plain {ip.tolist()}")
     assert ik[0] == 200 and ik[1] == 0
     torch.testing.assert_close(lk[:2], lam0[:2], equal_nan=True, rtol=0, atol=0)
@@ -351,16 +357,17 @@ def test_pcg_kernel_matches_plain(dev, N, variant):
     assert diff.max() <= 3
     same = torch.cat([torch.zeros(2, dtype=torch.bool, device=dev), diff == 0])
     assert (lk[same] - lp[same]).abs().max() <= 1e-3 * lp[same].abs().max()
-    if N > SHARED_MAX_N and not fits(N, "shared", SHARED_GROUPS):
+    if N > SHARED_MAX_N[nx] and not fits(N, "shared", SHARED_GROUPS[nx], 1, nx=nx):
         with pytest.raises(RuntimeError, match="pcg kernel launch"):
-            pcg_solve_batched_cuda(*system, variant=("shared", SHARED_GROUPS, 1))
-    # nx = 13 is not compiled: the launch function returns an error code
-    lib = load_library("pcg")
-    lib.gato_pcg.argtypes = [ctypes.POINTER(_PcgArgs), ctypes.c_int, ctypes.c_void_p]
-    lib.gato_pcg.restype = ctypes.c_int
+            pcg_solve_batched_cuda(*system, variant=("shared", SHARED_GROUPS[nx], 1))
+    # another nx than the plant's is not compiled: the library's launch
+    # function returns an error code
+    entry = getattr(load_library("pcg", robot), f"gato_pcg_{PLANT_OF_NX[nx]}")
+    entry.argtypes = [ctypes.POINTER(_PcgArgs), ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
     args = _PcgArgs(*([None] * 11), 1, 2, 1, 0, 1, 1)
-    assert lib.gato_pcg(ctypes.byref(args), 13,
-                        torch.cuda.current_stream().cuda_stream) != 0
+    other = 14 if nx == 12 else 12
+    assert entry(ctypes.byref(args), other, torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.parametrize("N,phase_a", HORIZONS)
@@ -402,13 +409,15 @@ def test_iter_kernel_matches_plain(dev, N, phase_a):
             sqp_iter_core_cuda(m, COST, *args, variant=("shared", 1))
 
 
-def test_staged_route_solves_past_128_knots(dev):
-    """solve_batched at N=136 takes the staged route by itself: one launch
-    each of kkt, pcg and merit per SQP iteration, none of bsqp_iter; its
-    warm-start merit matches the plain route's, its steps mostly too."""
-    m = load_robot("indy7", torch.float32, dev)
+@pytest.mark.parametrize("robot", ("indy7", "iiwa14"))
+def test_staged_route_solves_past_128_knots(dev, robot):
+    """solve_batched at N=136 takes the staged route by itself, for each
+    plant: one launch each of kkt, pcg and merit per SQP iteration, none of
+    bsqp_iter; its warm-start merit matches the plain route's, its steps
+    mostly too."""
+    m = load_robot(robot, torch.float32, dev)
     B, N = 8, 136
-    p = _problem(dev, B, N, 17)
+    p = _problem(dev, B, N, 17, m.nq)
     settings = BSQPSettings(N=N, max_sqp_iters=1, max_pcg_iters=P["max_pcg_iters"])
     hp = HyperParams.create(B, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"],
                             device=dev)
@@ -419,7 +428,7 @@ def test_staged_route_solves_past_128_knots(dev):
                                      p["lam"], p["x_s"], p["ref"], p["f_ext"], 0.01)
     torch.cuda.synchronize()
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 0]
-    assert X.shape == (B, N, 12) and torch.isfinite(X).all()
+    assert X.shape == (B, N, m.nx) and torch.isfinite(X).all()
     r = sqp_solve_chained(sqp_iter_reference, m, COST, settings, p["X"], p["U"],
                           p["lam"], p["x_s"], p["ref"], p["f_ext"], hp.rho,
                           hp.drho, hp.mu, hp.pcg_tol, 0.01)
@@ -568,3 +577,24 @@ def test_rollout_graph_replay_equals_eager(dev, estimator):
     torch.cuda.synchronize()
     for g, e in zip(graphed, eager):
         assert torch.isfinite(g).all() and torch.equal(g, e)
+
+
+@pytest.mark.parametrize("N", (8, 256))
+def test_fleet_graph_replay_equals_eager(dev, N):
+    """The mixed indy7 + iiwa14 fleet's cycle (examples/mixed_fleet.py,
+    B=4 each) replayed from its CUDA graph equals the same cycles run
+    eagerly, bit for bit (device_cycle_time holds it over 4 cycles): at
+    N=8 each member's bsqp_iter and rk4 in the captured cycle, at N=256
+    each member's kkt, pcg, merit and rk4 (the staged route, its Schur
+    inverse in the capturable form)."""
+    from gato_tpu_torch.examples import mixed_fleet as mf
+
+    members, trajs = [], {}
+    for name, q0, off, amp in mf.SPECS:
+        m, traj = mf.make_member(name, name, q0, off, 4, N, 0.01, 0, amp, device=dev)
+        members.append(m)
+        trajs[name] = traj
+    out = mf.device_cycle_time(members, trajs, N, reps=3)
+    per = dict(bsqp_iter=1, rk4=1) if N <= 128 else dict(kkt=1, pcg=1, merit=1, rk4=1)
+    assert out["same_as_eager"] and out["ms"] > 0
+    assert out["launches"] == {k: 2 * per.get(k, 0) for k in mf.WRAPPERS}

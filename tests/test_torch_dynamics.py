@@ -5,7 +5,9 @@ Against the JAX channel trace on jnp arrays the port runs the same ops in
 the same order, so they agree to rtol 1e-12. Against the spatial-algebra
 gato_tpu.dynamics.algorithms.fd they differ by the trace's 1e-9 constant
 snap (channelized.py:22): atol 1e-7 on indy7, whose URDF has such
-near-round constants; iiwa14's has none.
+near-round constants; iiwa14's has none. The trace's straight-line program
+(dynamics/codegen.py::fd_program), which rk4's plain version runs, equals
+the trace on torch channels bit for bit.
 """
 
 import os
@@ -16,11 +18,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gato_tpu.dynamics.algorithms import fd as jax_fd
 from gato_tpu.ops.merit_fast import _get_cd as jax_get_cd
 from gato_tpu_torch.dynamics import mathshim as ms
+from gato_tpu_torch.dynamics.codegen import fd_program
+from gato_tpu_torch.ops import cuda_sim
 from gato_tpu_torch.ops.merit_fast import _get_cd
+from gato_tpu_torch.robots.model import load_robot
 from torch_port_helpers import cols, jit_per_sample, models
 
 B = 5
@@ -87,6 +93,38 @@ def test_fd_matches_spatial_algebra_fd(robot, atol):
                                np.asarray(ref), rtol=0, atol=atol)
 
 
+def test_fd_program_and_rk4_plain_equal_the_trace_bit_for_bit():
+    """fd_program on torch and on numpy channels, and rk4_plain on CPU
+    tensors (numpy views of the columns), against the channel trace on
+    torch channels: both plants, float32 and float64, with and without a
+    wrench, at B = 1 and 64 (strided columns): equal bit for bit."""
+    rng = np.random.default_rng(5)
+    for robot in ("indy7", "iiwa14"):
+        for dtype in (torch.float32, torch.float64):
+            m = load_robot(robot, dtype, "cpu")
+            cd, nq = _get_cd(m.key), m.nq
+            for b in (1, 64):
+                x = torch.tensor(rng.uniform(-1.5, 1.5, (b, 2 * nq)), dtype=dtype)
+                u = torch.tensor(rng.uniform(-20, 20, (b, nq)), dtype=dtype)
+                f = torch.tensor(rng.uniform(-5, 5, (b, 6)), dtype=dtype)
+                for fe in (None, f):
+                    ch = [[t[:, i] for i in range(nq)] for t in (x.cos(), x.sin(), x[:, nq:], u)]
+                    fec = None if fe is None else [fe[:, i] for i in range(6)]
+                    want = cd.fd(*ch, f_ext=fec)
+                    prog = fd_program(m.key, fe is not None)
+                    got = prog(*ch, fec)
+                    got_np = prog(*[[c.numpy() for c in cs] for cs in ch],
+                                  None if fec is None else [c.numpy() for c in fec])
+                    for w, g, n in zip(want, got, got_np):
+                        assert torch.equal(w, g) and torch.equal(w, torch.from_numpy(n))
+                    traced = cuda_sim.rk4_channels(
+                        lambda cs, ss, qd, uc, fc: cd.fd(cs, ss, qd, uc, f_ext=fc),
+                        [x[:, i] for i in range(nq)], [x[:, nq + i] for i in range(nq)],
+                        [u[:, i] for i in range(nq)], fec, 0.01, 2)
+                    assert torch.equal(cuda_sim.rk4_plain(m, x, u, 0.01, fe, 2),
+                                       torch.stack(traced[0] + traced[1], 1))
+
+
 def test_model_from_numpy_refuses_arrays_of_another_robot():
     """interop builds the port's model from the JAX model's arrays and the
     same URDF's parsed constants, and refuses arrays that disagree."""
@@ -115,7 +153,8 @@ def test_port_never_imports_jax():
             "for name in ('dynamics.spatial', 'dynamics.algorithms', 'native', "
             "'ops.integrators', 'ops.merit', 'ops.btd_solve', 'api.interface', "
             "'api.mpc', 'api.force_estimator', 'api.force_estimator_device', "
-            "'api.rollout', 'api.experiment_runner', 'examples.pickplace_device'):\n"
+            "'api.rollout', 'api.experiment_runner', 'examples.pickplace_device', "
+            "'parallel.fleet', 'examples.mixed_fleet'):\n"
             "    assert 'gato_tpu_torch.' + name in names, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gato_tpu' or m.startswith('gato_tpu.')]\n"

@@ -40,7 +40,7 @@ def jax_state(dtype, radius=10.0):
 
 
 def port_state(dtype, radius=10.0):
-    st = T.fe_init(radius, dtype=getattr(torch, dtype))
+    st = T.fe_init(radius, dtype=getattr(torch, dtype), device="cpu")
     js = fe_state_from_numpy({f: np.asarray(getattr(jax_state(dtype, radius), f))
                               for f in FIELDS}, device="cpu")
     for f in FIELDS:
@@ -93,7 +93,7 @@ def test_update_matches_numpy_force_estimator():
     agrees (as tests/test_force_estimator_device.py holds the JAX pair)."""
     ref = ForceEstimator(B, seed=0)
     dirs = torch.tensor(T.fibonacci_sphere(B - 3))
-    st = T.fe_init(10.0)
+    st = T.fe_init(10.0, device="cpu")
     for best, errs, u in draws(7):
         np.testing.assert_allclose(T.fe_generate(st, dirs).numpy(), ref.generate_batch(),
                                    rtol=1e-5, atol=1e-5)

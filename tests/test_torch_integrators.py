@@ -116,7 +116,7 @@ def test_merit_and_sim_forward_match_jax(setup, monkeypatch):
     jm, tm, jcp, tcp, a = setup
     ja = {k: jnp.asarray(v) for k, v in a.items()}
     jal = jmerit.default_alphas(8, dtype=jnp.float64)
-    tal = merit.default_alphas(8, dtype=torch.float64)
+    tal = merit.default_alphas(8, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(tal.numpy(), np.asarray(jal))
     ref = jit_per_sample(lambda X, U, dX, dU, xs, r, fe, mu: jmerit.merit_alphas(
         jm, jcp, X, U, dX, dU, xs, r, fe, mu, DT, jal))(

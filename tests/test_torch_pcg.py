@@ -1,11 +1,12 @@
 """The pcg kernel's variants and what surrounds them, on the CPU:
 
-- ops/cuda_pcg.py::pcg_variant at every horizon the kernel takes, with the
-  shared-memory formula of csrc/pcg.cu (smem_bytes), the knots of each CTA
-  of a cluster and its halo;
-- the cluster variant's cut of the block-tridiagonal matvec: each CTA's
-  rows from its own blocks, its halo and its neighbours' edge rows equal
-  ops/schur.py::btd_matvec;
+- ops/cuda_pcg.py::pcg_variant at every horizon the kernel takes, for
+  each plant's state size (indy7 12, iiwa14 14), with the shared-memory
+  formula of csrc/pcg.cu (smem_bytes), the knots of each CTA of a cluster
+  and its halo;
+- the cluster variant's cut of the block-tridiagonal matvec, for each
+  state size: each CTA's rows from its own blocks, its halo and its
+  neighbours' edge rows equal ops/schur.py::btd_matvec;
 - the wrapper's plain version on CPU tensors, whatever variant is named;
 - the float32 PCG on a fig-8 steady-state Schur system against the JAX
   package's pcg_channels in float32 (the counts lane by lane, the cap).
@@ -14,6 +15,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gato_tpu.ops.pallas_pcg import pcg_channels
@@ -23,9 +25,9 @@ from gato_tpu_torch.api.config import INDY7_START_CONFIGS
 from gato_tpu_torch.ops.cost import CostParams
 from gato_tpu_torch.ops.cuda_pcg import (CLUSTER_SIZES, MAX_KNOTS,
                                          PORTABLE_CLUSTER, SHARED_MAX_N,
-                                         SMEM_LIMIT, cta_ranges, fits,
-                                         pcg_solve_batched_cuda, pcg_variant,
-                                         smem_bytes, threads)
+                                         SMEM_LIMIT, SMEM_THREADS, cta_ranges,
+                                         fits, pcg_solve_batched_cuda,
+                                         pcg_variant, smem_bytes, threads)
 from gato_tpu_torch.ops.kkt_fast import setup_kkt_batched
 from gato_tpu_torch.ops.pcg import pcg_solve_batched
 from gato_tpu_torch.ops.schur import btd_matvec, build_schur, mv
@@ -35,22 +37,34 @@ from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 from torch_port_helpers import _bcast_chan, _to_chan
 
 
-def test_pcg_variant_fits_every_horizon():
-    """For every N from 1 to 1024 the variant that N takes fits a CTA's
-    232,448 bytes and 1024 threads; a cluster's CTAs hold every knot exactly
-    once, each but rank 0 with the halo; a cluster holds at most 8 CTAs, or
-    16 (csrc/pcg.cu sets cudaFuncAttributeNonPortableClusterSizeAllowed
-    past 8). The shared variant runs up to SHARED_MAX_N and no further than
-    it fits; smem_bytes is csrc/pcg.cu's formula: 600 floats a slot (its
-    knots, and in a cluster a halo slot on either side), two partials a
-    thread, 8 totals and 48 floats of halo rows."""
+# per state size nx: (N, G, C, bytes) of smem_bytes at a few variants, and
+# the global variant's bytes at N = 256
+SMEM_CASES = {12: (((32, 4, 1, 80_448), (95, 4, 1, 231_296), (256, 4, 8, 85_248),
+                    (256, 1, 16, 46_080)), 4 * (3 * 256 * 12 + 32)),
+              14: (((32, 2, 1, 107_952), (71, 2, 1, 232_400), (256, 2, 8, 114_448),
+                    (256, 1, 16, 62_224)), 4 * (3 * 256 * 14 + 32))}
+
+
+@pytest.mark.parametrize("nx", (12, 14))
+def test_pcg_variant_fits_every_horizon(nx):
+    """For every N from 1 to 1024 the variant that N takes for a system of
+    state size nx (indy7 12, iiwa14 14) fits a CTA's 232,448 bytes and
+    SMEM_THREADS (384) threads, or 1024 in the global variant; a cluster's
+    CTAs hold every knot exactly once, each but rank 0 with the halo; a
+    cluster holds at most 8 CTAs, or 16 (csrc/pcg.cu sets
+    cudaFuncAttributeNonPortableClusterSizeAllowed past 8). The shared
+    variant runs up to SHARED_MAX_N[nx] and no further than it fits;
+    smem_bytes is csrc/pcg.cu's formula: 4 nx^2 + 2 nx floats a slot (600
+    for indy7, 812 for iiwa14: its knots, and in a cluster a halo slot on
+    either side), two partials a thread, 8 totals and 4 nx floats of halo
+    rows."""
     layouts = {}
     for N in range(1, MAX_KNOTS + 1):
-        layout, g, c = pcg_variant(N)
+        layout, g, c = pcg_variant(N, nx)
         layouts.setdefault(layout, []).append(N)
-        assert fits(N, layout, g, c)
-        assert smem_bytes(N, layout, g, c) <= SMEM_LIMIT
-        assert threads(N, layout, g, c) <= 1024
+        assert fits(N, layout, g, c, nx=nx)
+        assert smem_bytes(N, layout, g, c, nx=nx) <= SMEM_LIMIT
+        assert threads(N, layout, g, c) <= (1024 if layout == "global" else SMEM_THREADS)
         if layout == "cluster":
             assert c in CLUSTER_SIZES and (c <= PORTABLE_CLUSTER or c == 16)
             ranges = cta_ranges(N, c)
@@ -60,23 +74,24 @@ def test_pcg_variant_fits_every_horizon():
             assert [h for _, _, h in ranges] == [False] + [True] * (c - 1)
         else:
             assert c == 1
-    assert layouts["shared"] == list(range(1, SHARED_MAX_N + 1))
-    assert min(layouts["cluster"]) == SHARED_MAX_N + 1
-    for N, g, c, nbytes in ((32, 4, 1, 80_448), (95, 4, 1, 231_296),
-                            (256, 4, 8, 85_248), (256, 1, 16, 46_080)):
+    assert layouts["shared"] == list(range(1, SHARED_MAX_N[nx] + 1))
+    assert min(layouts["cluster"]) == SHARED_MAX_N[nx] + 1
+    cases, global_bytes = SMEM_CASES[nx]
+    for N, g, c, nbytes in cases:
         layout = "shared" if c == 1 else "cluster"
-        assert smem_bytes(N, layout, g, c) == nbytes
-    assert smem_bytes(256, "global") == 4 * (3 * 256 * 12 + 32)
+        assert smem_bytes(N, layout, g, c, nx=nx) == nbytes
+    assert smem_bytes(256, "global", nx=nx) == global_bytes
 
 
-def test_cluster_cut_matvec_matches_btd_matvec():
+@pytest.mark.parametrize("nx", (12, 14))
+def test_cluster_cut_matvec_matches_btd_matvec(nx):
     """Each CTA of a cluster computes its knots' rows of the block-
     tridiagonal matvec from its own main and lower blocks, the halo (knot
     k0 - 1's lower block) and the x rows of the knots just outside its
     range (the neighbours' edge rows): together btd_matvec, at N = 100 for
-    every cluster size."""
+    every cluster size, with nx x nx blocks (indy7 12, iiwa14 14)."""
     rng = np.random.default_rng(3)
-    B, N, nx = 2, 100, 12
+    B, N = 2, 100
     main = torch.tensor(rng.normal(size=(B, N, nx, nx)))
     lower = torch.tensor(rng.normal(size=(B, N - 1, nx, nx)))
     x = torch.tensor(rng.normal(size=(B, N, nx)))

@@ -91,18 +91,19 @@ def test_rk4_wrapper_takes_the_plain_path_only_on_cpu():
 
 
 def test_each_kernel_names_its_plants():
-    """bsqp_iter, iter, merit and rk4 are built for indy7 and iiwa14, kkt
-    and pcg for indy7 alone: for iiwa14 those two raise
-    NotImplementedError naming the kernel and the ROADMAP item, through
-    require_cuda_robot and before any launch through the wrappers (pcg's,
-    which sees no model, by the state size), and so does every kernel but
-    rk4 for the pendulum-augmented plant; rk4 serves it from a library of
-    its own (require_cuda_robot names its generated plant). Routes "iter"
-    and "staged" of an iiwa14 solve past N = 128 and with iter_kernel="off"
-    reach kkt and raise there, before any launch."""
+    """Every kernel is built for indy7 and iiwa14; every kernel but rk4
+    raises NotImplementedError naming the kernel and the ROADMAP item for
+    the pendulum-augmented plant, through require_cuda_robot and before
+    any launch; rk4 serves it from a library of its own
+    (require_cuda_robot names its generated plant). The kkt and pcg
+    wrappers take iiwa14's inputs to their checks (a tensor off the card
+    is refused there, before any build or launch); pcg's, which sees no
+    model, raises for a state size no plant has, naming the ROADMAP item.
+    Past N = 128 and with iter_kernel="off" a solve takes the staged
+    route."""
     assert CUDA_ROBOTS == {"rk4": ("indy7", "iiwa14"), "bsqp_iter": ("indy7", "iiwa14"),
-                           "iter": ("indy7", "iiwa14"), "pcg": ("indy7",),
-                           "merit": ("indy7", "iiwa14"), "kkt": ("indy7",)}
+                           "iter": ("indy7", "iiwa14"), "pcg": ("indy7", "iiwa14"),
+                           "merit": ("indy7", "iiwa14"), "kkt": ("indy7", "iiwa14")}
     indy7 = load_robot("indy7", torch.float32, device="cpu")
     iiwa = load_robot("iiwa14", torch.float32, device="cpu")
     pend = add_pendulum(iiwa, mass=15.0, length=0.3)
@@ -114,25 +115,24 @@ def test_each_kernel_names_its_plants():
             with pytest.raises(NotImplementedError,
                                match=f"{kernel} kernel.*ROADMAP Queue 2"):
                 require_cuda_robot(pend, kernel)
-        if kernel in ("kkt", "pcg"):
-            with pytest.raises(NotImplementedError,
-                               match=f"{kernel} kernel is not built for 'iiwa14'.*"
-                                     "ROADMAP Queue 2"):
-                require_cuda_robot(iiwa, kernel)
-        else:
-            assert require_cuda_robot(iiwa, kernel) == "iiwa14"
+        assert require_cuda_robot(iiwa, kernel) == "iiwa14"
     B, N = 2, 4
 
     def meta(*shape, dtype=torch.float32):
         return torch.empty(*shape, dtype=dtype, device="meta")
 
-    with pytest.raises(NotImplementedError, match="kkt kernel"):
+    with pytest.raises(NotImplementedError, match="kkt kernel.*ROADMAP Queue 2"):
+        setup_kkt_batched_cuda(pend, None, meta(B, N, 20), meta(B, N - 1, 10), meta(B, 20),
+                               meta(B, N, 6), meta(B, 6), DT)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         setup_kkt_batched_cuda(iiwa, None, meta(B, N, 14), meta(B, N - 1, 7), meta(B, 14),
                                meta(B, N, 6), meta(B, 6), DT)
-    with pytest.raises(NotImplementedError, match="pcg kernel.*nx=14.*ROADMAP Queue 2"):
-        pcg_solve_batched_cuda(meta(B, N, 14, 14), meta(B, N - 1, 14, 14), meta(B, N, 14, 14),
-                               meta(B, N - 1, 14, 14), meta(B, N, 14), meta(B, N, 14), meta(B),
-                               10, meta(B, dtype=torch.bool))
+    for nx, err, match in ((14, ValueError, "CUDA tensor"),
+                           (20, NotImplementedError, "pcg kernel.*nx=20.*ROADMAP Queue 2")):
+        with pytest.raises(err, match=match):
+            pcg_solve_batched_cuda(meta(B, N, nx, nx), meta(B, N - 1, nx, nx),
+                                   meta(B, N, nx, nx), meta(B, N - 1, nx, nx), meta(B, N, nx),
+                                   meta(B, N, nx), meta(B), 10, meta(B, dtype=torch.bool))
     assert [select_route("auto", "auto", n, True) for n in (128, 129)] == ["solve", "staged"]
     assert select_route("off", "auto", 128, True) == "iter"
     assert select_route("off", "off", 32, True) == "staged"

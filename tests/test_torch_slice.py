@@ -25,7 +25,7 @@ from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS, INDY7_START_CONFIGS
 from gato_tpu_torch.interop import state_from_numpy
 from gato_tpu_torch.solver.bsqp import solve_batched
 from gato_tpu_torch.solver.types import BSQPSettings
-from torch_port_helpers import costs, models
+from torch_port_helpers import costs, jax_kkt_in_pieces, models
 
 N, B, DT, CYCLES = 8, 4, 0.01, 4
 P = DEFAULT_SOLVER_PARAMS
@@ -47,7 +47,8 @@ def test_config_copies_match_jax_package():
     np.testing.assert_array_equal(figure8(DT), jax_figure8(DT))
 
 
-def test_fig8_cycle_matches_jax():
+def test_fig8_cycle_matches_jax(monkeypatch):
+    jax_kkt_in_pieces(monkeypatch)
     jm, tm = models("indy7")
     jcp, tcp = costs(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost",
                                           "N_cost", "q_lim_cost",

@@ -23,7 +23,7 @@ from gato_tpu.solver.types import HyperParams as JHyperParams
 from gato_tpu_torch.interop import state_from_numpy
 from gato_tpu_torch.solver.bsqp import solve_batched
 from gato_tpu_torch.solver.types import BSQPSettings
-from torch_port_helpers import DEFAULT_COST, costs, models
+from torch_port_helpers import DEFAULT_COST, costs, jax_kkt_in_pieces, models
 
 B, N, DT, MAX_PCG = 3, 12, 0.01, 500
 # (solve_kernel, iter_kernel) of the routes "solve", "iter" and "staged"
@@ -56,10 +56,12 @@ def _solved(robot):
         f_ext=rng.uniform(-3, 3, (B, 6)), lam=rng.uniform(-0.1, 0.1, (B, N, 2 * nq)))
     hp = JHyperParams.create(B, rho=0.01, mu=10.0, pcg_tol=1e-12,
                              dtype=jnp.float64)
-    Xo, Uo, lam_o, hpo, stats = solve_batched_jit(
-        jm, JSettings(N=N, max_sqp_iters=3, max_pcg_iters=MAX_PCG), jcp, hp,
-        *(jnp.asarray(a[k]) for k in ("X", "U", "lam", "x_s", "ref", "f_ext")),
-        jnp.float64(DT))
+    with pytest.MonkeyPatch.context() as mp:
+        jax_kkt_in_pieces(mp)
+        Xo, Uo, lam_o, hpo, stats = solve_batched_jit(
+            jm, JSettings(N=N, max_sqp_iters=3, max_pcg_iters=MAX_PCG), jcp, hp,
+            *(jnp.asarray(a[k]) for k in ("X", "U", "lam", "x_s", "ref", "f_ext")),
+            jnp.float64(DT))
     xla = dict(X=Xo, U=Uo, lam=lam_o, rho=hpo.rho, conv=stats.kkt_converged,
                merit0=stats.initial_merit, merit_final=stats.final_merit,
                sqp_iters=stats.sqp_iters, pcg_iters=stats.pcg_iters,

@@ -5,14 +5,16 @@ against the JAX package, float64 on the CPU, on identical numpy inputs:
   kernel) against pallas_iter.iter_channels, the TPU kernel's body, run on
   plain arrays as tests/test_pallas_iter.py runs it;
 - ops/pcg.py::pcg_solve_batched (the plain version of the pcg kernel) at a
-  horizon past 128 knots against pallas_pcg.pcg_channels;
+  horizon past 128 knots against pallas_pcg.pcg_channels, for each plant
+  the pcg kernel is built for (indy7, iiwa14);
 - the KKT assembly against the array-based gato_tpu.ops.kkt.setup_kkt,
   including the terminal knot as the kkt kernel forms it (the per-knot
-  trace with the terminal tracking weight);
-- solver/bsqp.py::select_route, and the entry points' default device;
-- ops/cuda_iter.py::iteration_variant, the iteration kernels' layout by N
-  for each plant (indy7, iiwa14), and the variants of the staged KKT
-  (ops/cuda_kkt.py, phase A; indy7 only).
+  trace with the terminal tracking weight), for each plant;
+- the entry points' default device (the solver's, and the estimator's and
+  the merit's).
+
+The routes and the kernels' variants, which need no JAX, are held in
+tests/test_torch_variants.py.
 
 PCG runs to 1e-10 here, so the two Krylov loops stop at the same count and
 their iterates agree to the tolerance-implied level.
@@ -28,46 +30,53 @@ from gato_tpu.ops import kkt as jkkt
 from gato_tpu.ops.kkt_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_iter import iter_channels
 from gato_tpu.ops.pallas_pcg import pcg_channels
-from gato_tpu_torch.dynamics import codegen
+from gato_tpu_torch.api.force_estimator_device import fe_init
 from gato_tpu_torch.interop import model_from_numpy, state_from_numpy
-from gato_tpu_torch.ops import cuda_iter, cuda_kkt
-from gato_tpu_torch.ops.cuda_iter import (COMPILED_GROUPS, MAX_THREADS,
-                                          SHARED_GROUPS, SHARED_MAX_N,
-                                          SMEM_LIMIT, iteration_variant,
-                                          phase_a_default, smem_bytes,
-                                          sqp_iter_core_reference,
-                                          warp_threads)
+from gato_tpu_torch.ops.cuda_iter import sqp_iter_core_reference
 from gato_tpu_torch.ops.kkt_fast import (_mat, _vec,
                                          kkt_knot_channels_structured,
                                          setup_kkt_batched)
+from gato_tpu_torch.ops.merit import default_alphas
 from gato_tpu_torch.ops.merit_fast import _get_cd
 from gato_tpu_torch.ops.pcg import pcg_solve_batched
 from gato_tpu_torch.ops.schur import build_schur
 from gato_tpu_torch.robots.model import load_robot
-from gato_tpu_torch.solver.bsqp import select_route
-from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
+from gato_tpu_torch.solver.types import HyperParams
 from torch_port_helpers import (DEFAULT_COST, _bcast_chan, _to_chan, costs,
-                                jit_per_sample, models, t64)
+                                jax_kkt_in_pieces, jit_per_sample, models, t64)
 
 B, DT, TOL = 3, 0.01, 1e-10
+PLANTS = ("indy7", "iiwa14")
 
 
-def _problem(N, seed):
+def _problem(N, seed, nq=6):
+    nx = 2 * nq
     rng = np.random.default_rng(seed)
-    return dict(X=rng.uniform(-0.3, 0.3, (B, N, 12)),
-                U=rng.uniform(-5, 5, (B, N - 1, 6)),
-                x_s=rng.uniform(-0.3, 0.3, (B, 12)),
+    return dict(X=rng.uniform(-0.3, 0.3, (B, N, nx)),
+                U=rng.uniform(-5, 5, (B, N - 1, nq)),
+                x_s=rng.uniform(-0.3, 0.3, (B, nx)),
                 ref=rng.uniform(-0.5, 0.5, (B, N, 6)),
                 f_ext=rng.uniform(-3, 3, (B, 6)),
-                lam=rng.uniform(-0.1, 0.1, (B, N, 12)),
+                lam=rng.uniform(-0.1, 0.1, (B, N, nx)),
                 rho=np.array([1e-3, 3e-2, 1e-1]))
 
 
 @pytest.fixture(scope="module")
-def pair():
-    jm, tm = models("indy7")
-    jcp, tcp = costs(**DEFAULT_COST)
-    return jm, tm, jcp, tcp
+def pairs():
+    """{plant: (JAX model, port model, JAX costs, port costs)}, each made
+    when a test first asks."""
+    cache = {}
+
+    def get(robot):
+        if robot not in cache:
+            cache[robot] = models(robot) + costs(**DEFAULT_COST)
+        return cache[robot]
+    return get
+
+
+@pytest.fixture(scope="module")
+def pair(pairs):
+    return pairs("indy7")
 
 
 def _unchan(chs, knots):
@@ -108,16 +117,19 @@ def test_iter_core_matches_iter_channels(pair):
         assert np.abs(port.numpy() - ref).max() / scale < 1e-8
 
 
-def test_pcg_past_128_knots_matches_pcg_channels(pair):
-    """N = 130, past the fused kernels' horizon: a real Schur system from
-    the plain KKT; lane 0's warm start holds a NaN (no iterations, reports
-    max_iters, keeps its warm start), lane 2 is skipped."""
-    jm, tm, jcp, tcp = pair
-    N, nx, max_iters = 130, 12, 400
-    p = _problem(N, 5)
+@pytest.mark.parametrize("robot", PLANTS)
+def test_pcg_past_128_knots_matches_pcg_channels(pairs, robot):
+    """N = 130, past the fused kernels' horizon, for each plant the pcg
+    kernel is built for (nx = 12, 14): a real Schur system from the plain
+    KKT; lane 0's warm start holds a NaN (no iterations, reports max_iters,
+    keeps its warm start), lane 2 is skipped."""
+    jm, tm, jcp, tcp = pairs(robot)
+    N, nq, max_iters = 130, tm.nq, 400
+    nx = 2 * nq
+    p = _problem(N, 5, nq)
     kkt = setup_kkt_batched(tm, tcp, *(t64(p[k]) for k in (
         "X", "U", "x_s", "ref", "f_ext")), DT)
-    sch = build_schur(kkt, t64(p["rho"]), 6)
+    sch = build_schur(kkt, t64(p["rho"]), nq)
     mats = [getattr(sch, f).numpy() for f in ("S_main", "S_lower", "P_main",
                                               "P_lower")]
     gamma = sch.gamma.numpy()
@@ -151,14 +163,18 @@ def test_pcg_past_128_knots_matches_pcg_channels(pair):
     assert np.abs(lam.numpy()[1] - lam_j[1]).max() / scale < 1e-8
 
 
-def test_kkt_assembly_and_terminal_fold_match_setup_kkt(pair):
+@pytest.mark.parametrize("robot", PLANTS)
+def test_kkt_assembly_and_terminal_fold_match_setup_kkt(pairs, robot, monkeypatch):
     """The plain KKT setup against the array path, every tensor; and the
     terminal knot formed as the kkt kernel forms it (the non-terminal trace
     with tracking weight N_cost, zero control and successor) against the
-    array path's terminal Q and q."""
-    jm, tm, jcp, tcp = pair
-    N = 9
-    p = _problem(N, 7)
+    array path's terminal Q and q; for each plant the kkt kernel is built
+    for. The array path's per-knot pieces are compiled once each
+    (jax_kkt_in_pieces)."""
+    jax_kkt_in_pieces(monkeypatch)
+    jm, tm, jcp, tcp = pairs(robot)
+    N, nq = 9, tm.nq
+    p = _problem(N, 7, nq)
     jk = jit_per_sample(lambda X, U, xs, r, fe: jkkt.setup_kkt(
         jm, jcp, X, U, xs, r, fe, DT))(*(jnp.asarray(p[k]) for k in (
             "X", "U", "x_s", "ref", "f_ext")))
@@ -172,10 +188,10 @@ def test_kkt_assembly_and_terminal_fold_match_setup_kkt(pair):
                                    atol=1e-8 * np.abs(ref).max(), err_msg=f)
 
     xT = t64(p["X"][:, -1])
-    zeros = [torch.zeros(B, dtype=torch.float64)] * 12
+    zeros = [torch.zeros(B, dtype=torch.float64)] * (2 * nq)
     _, _, _, Q, qv, _, _ = kkt_knot_channels_structured(
-        _get_cd(tm.key), tm.key, tcp, [xT[:, i] for i in range(6)],
-        [xT[:, 6 + i] for i in range(6)], zeros[:6], zeros,
+        _get_cd(tm.key), tm.key, tcp, [xT[:, i] for i in range(nq)],
+        [xT[:, nq + i] for i in range(nq)], zeros[:nq], zeros,
         [t64(p["ref"][:, -1, i]) for i in range(3)],
         [t64(p["f_ext"][:, i]) for i in range(6)], DT, 2, xT[:, 0],
         w_track=tcp.N_cost)
@@ -186,131 +202,37 @@ def test_kkt_assembly_and_terminal_fold_match_setup_kkt(pair):
                                    atol=1e-9 * np.abs(ref).max())
 
 
-def test_route_selector():
-    """(solve_kernel, iter_kernel, N, on CUDA) -> route, as the JAX
-    package's gates read on the card: N alone decides "auto"."""
-    for on_cuda in (False, True):
-        for N in (2, 32, 128):
-            assert select_route("auto", "auto", N, on_cuda) == "solve"
-            assert select_route("fused", "off", N, on_cuda) == "solve"
-            assert select_route("off", "auto", N, on_cuda) == "iter"
-            assert select_route("off", "fused", N, on_cuda) == "iter"
-            assert select_route("off", "off", N, on_cuda) == "staged"
-        for N in (129, 256, 1024):
-            for gates in (("auto", "auto"), ("off", "auto"), ("auto", "off"),
-                          ("off", "off")):
-                assert select_route(*gates, N, on_cuda) == "staged"
-    # "fused" past 128 knots: the plain route on the CPU, refused on the card
-    assert select_route("fused", "auto", 256, False) == "solve"
-    assert select_route("off", "fused", 256, False) == "iter"
-    for gates in (("fused", "auto"), ("off", "fused"), ("auto", "fused")):
-        with pytest.raises(ValueError, match="fused"):
-            select_route(*gates, 129, True)
-    for gates in (("on", "auto"), ("auto", "pallas")):
-        with pytest.raises(ValueError, match="expected one of"):
-            select_route(*gates, 32, False)
-        with pytest.raises(ValueError, match="expected one of"):
-            BSQPSettings(solve_kernel=gates[0], iter_kernel=gates[1])
-
-
-def test_entry_points_default_to_the_card():
-    """Without a device argument the entry points build CUDA tensors; with
-    no card they raise and say how to ask for the CPU, never returning CPU
-    tensors that would quietly take the plain route."""
+def _solver_entry_points():
     jm, _ = models("indy7")
     arrays = {f: np.asarray(getattr(jm, f)) for f in (
         "R_tree", "p_tree", "axis", "inertia", "joint_limits",
         "velocity_limits", "effort_limits", "R_ee", "p_ee", "gravity")}
     state = [np.zeros((1, 4, 12))] * 3 + [np.zeros((1, 12))] * 3 + [np.ones(1)] * 4
-    calls = (lambda: load_robot("indy7").R_tree,
+    return ((lambda: load_robot("indy7").R_tree,
              lambda: HyperParams.create(4).rho,
              lambda: model_from_numpy("indy7", arrays).R_tree,
-             lambda: state_from_numpy(*state)[0])
-    for call in calls:
+             lambda: state_from_numpy(*state)[0]),
+            lambda: load_robot("indy7", device="cpu").R_tree)
+
+
+def _estimator_entry_points():
+    return ((lambda: fe_init(10.0).estimate, lambda: default_alphas(8)),
+            lambda: fe_init(10.0, device="cpu").rotation)
+
+
+@pytest.mark.parametrize("calls", (_solver_entry_points, _estimator_entry_points),
+                         ids=("solver", "estimator"))
+def test_entry_points_default_to_the_card(calls):
+    """Without a device argument the entry points build CUDA tensors; with
+    no card they raise and say how to ask for the CPU, never returning CPU
+    tensors that would quietly take the plain route: the solver's
+    (load_robot, HyperParams.create, interop) and the wrench estimator's
+    and the merit's (fe_init, default_alphas)."""
+    defaults, on_cpu = calls()
+    for call in defaults:
         if torch.cuda.is_available():
             assert call().is_cuda
         else:
             with pytest.raises(RuntimeError, match='device="cpu"'):
                 call()
-    assert load_robot("indy7", device="cpu").R_tree.device.type == "cpu"
-
-
-# per plant state size nx: the last N where the shared layout fits at
-# G = 1, and the global layout's bytes at N = 32, 64, 128
-SHARED_FITS = {12: (86, ((32, 12_488), (64, 24_776), (128, 49_352))),
-               14: (64, ((32, 14_536), (64, 28_872), (128, 57_544)))}
-
-
-def test_iteration_variant_takes_shared_memory_where_it_fits():
-    """For every N from 2 to 128 the iteration kernels' (layout, G) for a
-    plant of state size nx (indy7 12, iiwa14 14): the four blocks in shared
-    memory up to N = 64, where smem_bytes fits the 232,448 bytes a block may
-    use (at G = 1 indy7's would up to N = 86; iiwa14's fits no further than
-    64 at any compiled G) and G W <= 256 threads, G = SHARED_GROUPS[nx],
-    one of the compiled G, which divide nx; the global scratch with G = 1
-    past N = 64. smem_bytes is csrc/sqp_iter.cuh's
-    formula: today's buffers (N (7 nx + nx) + 50 floats), plus 4 nx^2
-    floats a knot and 2 G W partials."""
-    for nx, (fits_to, bases) in SHARED_FITS.items():
-        _variant_rule(nx, fits_to, bases)
-
-
-def _variant_rule(nx, fits_to, bases):
-    shared = []
-    for N in range(2, 129):
-        layout, g = iteration_variant(N, nx)
-        W = warp_threads(N)
-        assert W % 32 == 0 and N <= W < N + 32
-        assert smem_bytes(N, layout, g, nx) <= SMEM_LIMIT and g * W <= MAX_THREADS
-        assert (smem_bytes(N, "shared", 1, nx) <= SMEM_LIMIT) == (N <= fits_to)
-        if layout == "shared":
-            shared.append(N)
-            assert g == SHARED_GROUPS[nx] and g in COMPILED_GROUPS[nx] and nx % g == 0
-        else:
-            assert (layout, g) == ("global", 1)
-    assert shared == list(range(2, SHARED_MAX_N + 1))
-    # the shared layout's last N is the last that a compiled G fits
-    assert all(smem_bytes(SHARED_MAX_N + 1, "shared", g, nx) > SMEM_LIMIT
-               for g in COMPILED_GROUPS[nx]) == (nx == 14)
-    for N, base in bases:
-        assert smem_bytes(N, "global", 1, nx) == base
-        for g in COMPILED_GROUPS[nx]:
-            assert (smem_bytes(N, "shared", g, nx)
-                    == base + 16 * nx * nx * N + 8 * g * warp_threads(N))
-
-
-def test_staged_kkt_variants():
-    """The staged KKT's variants: the kkt kernel's G is one of the splits
-    that the generated header carries (KKT_DIRS_G<G>), as is the iteration
-    kernels' 4; phase A of the iteration kernels is staged exactly where
-    indy7's shared layout has G = 4 groups, one per part of the header's
-    4-way split (every N up to 64), and never for iiwa14, whose header has
-    no staged KKT; a variant that is not compiled raises before any
-    launch."""
-    splits = codegen.KKT_SPLITS["indy7"]
-    assert cuda_kkt.KKT_GROUPS in splits and SHARED_GROUPS[12] in splits
-    assert cuda_kkt.VARIANTS == (("staged", cuda_kkt.KKT_GROUPS), ("one", 1))
-    with open(codegen.header_path("indy7")) as f:
-        header = f.read()
-    for g in splits:
-        assert f"constexpr int KKT_DIRS_G{g}[{g}][NX]" in header
-    assert "#define GATO_KKT_STAGES 1" in header
-    with open(codegen.header_path("iiwa14")) as f:
-        header = f.read()
-    assert codegen.KKT_SPLITS["iiwa14"] == ()
-    assert "KKT_DIRS_G" not in header and "GATO_KKT_STAGES" not in header
-    assert cuda_kkt._variant_code(("one", 1)) == 0
-    assert cuda_kkt._variant_code(("staged", 2)) == 2
-    for bad in (("staged", 4), ("staged", 6), ("one", 4), ("global", 1)):
-        with pytest.raises(ValueError, match="not compiled"):
-            cuda_kkt._variant_code(bad)
-    for N in range(2, 129):
-        staged = phase_a_default(*iteration_variant(N), 12) == "staged"
-        assert staged == (N <= 64)
-        assert phase_a_default(*iteration_variant(N, 14), 14) == "one"
-    assert cuda_iter.STAGED_A == {12: ("shared", 4)} and SHARED_GROUPS[12] == 4
-    assert cuda_iter._phase_a_code("shared", 4, "one", 12) == 0
-    for layout, g, nx in (("shared", 2, 12), ("global", 1, 12), ("shared", 7, 14),
-                          ("shared", 2, 14)):
-        with pytest.raises(ValueError, match="not compiled"):
-            cuda_iter._phase_a_code(layout, g, "staged", nx)
+    assert on_cpu().device.type == "cpu"

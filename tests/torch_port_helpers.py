@@ -33,8 +33,12 @@ import torch
 
 import gato_tpu.api.common as jcommon
 import gato_tpu.api.rollout as jrollout
+import gato_tpu.ops.kkt as jkkt
+import gato_tpu.ops.merit_fast as jmerit
 from gato_tpu.dynamics import algorithms as JA
 from gato_tpu.ops.cost import CostParams as JCostParams
+from gato_tpu.ops.cost import knot_cost_grad_hess as jax_knot_cost_grad_hess
+from gato_tpu.ops.integrators import linearize as jax_linearize
 from gato_tpu.ops.integrators import sim_step as jax_sim_step
 from gato_tpu.ops.kkt_fast import _get_cd as jax_get_cd
 from gato_tpu.ops.pallas_solve import solve_channels
@@ -69,16 +73,22 @@ def t64(a):
     return torch.tensor(np.asarray(a), dtype=torch.float64)
 
 
+# the JAX side's large programs (jit_per_sample, _piece) compiled with
+# XLA's LLVM backend at optimization level 0: about a sixth less compile
+# time on the CPU for the dynamics' derivatives, outputs within 2e-13 of
+# the optimized build's relative to their size
+COMPILE = {"xla_backend_optimization_level": 0}
+
+
 def jit_per_sample(fn):
     """fn jitted on one sample and called on each row of its batched
     arguments in turn, the outputs stacked: the JAX side of a batched
     comparison. Traced without vmap, a large program (the dynamics and
     their derivatives) traces and compiles in about three quarters of the
     vmapped program's time, to the same values (within 2e-13 on the
-    second-order derivatives)."""
-    f = jax.jit(fn)
-
+    second-order derivatives). Compiled once, with COMPILE."""
     def batched(*args):
+        f = jax.jit(fn).lower(*(a[0] for a in args)).compile(compiler_options=COMPILE)
         outs = [f(*(a[i] for a in args)) for i in range(args[0].shape[0])]
         return jax.tree_util.tree_map(lambda *xs: np.stack(xs), *outs)
     return batched
@@ -171,7 +181,7 @@ def _piece(key, fn, args):
         structs = jax.tree_util.tree_unflatten(
             tree, [jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in sig[2]])
         traced = jax.jit(fn).trace(*structs)
-        _PIECES[sig] = (traced.lower().compile(), traced.out_info)
+        _PIECES[sig] = (traced.lower().compile(compiler_options=COMPILE), traced.out_info)
     return _PIECES[sig]
 
 
@@ -217,15 +227,67 @@ def _solve_batched(model, settings, cp, hp, X, U, lam, x_s, ref, f_ext, dt):
                     model, cp, hp, X, U, lam, x_s, ref[..., :3], f_ext, dt)
 
 
-def jax_in_pieces(monkeypatch, *modules):
-    """For one test: the JAX package's rollouts (gato_tpu.api.rollout) and
-    rk4_step (gato_tpu.api.common), and the functions of `modules` that
-    call fd, call solve_batched, fd and sim_step compiled on their own
-    (module docstring)."""
+def _linearize(model, x, u, dt, f_ext=None, integrator_type=2):
+    return _on_host(("linearize", integrator_type),
+                    lambda m, x_, u_, dt_, fe: jax_linearize(m, x_, u_, dt_, f_ext=fe,
+                                                             integrator_type=integrator_type),
+                    model, x, u, dt, f_ext)
+
+
+def _knot_cost_grad_hess(model, cp, x, u, ref6, terminal):
+    if terminal:
+        return _on_host(("knot_cost", True),
+                        lambda m, c, x_, r: jax_knot_cost_grad_hess(m, c, x_, None, r, True),
+                        model, cp, x, ref6)
+    return _on_host(("knot_cost", False),
+                    lambda m, c, x_, u_, r: jax_knot_cost_grad_hess(m, c, x_, u_, r, False),
+                    model, cp, x, u, ref6)
+
+
+_JAX_KNOT_TERMS = jmerit._knot_terms
+
+
+def _knot_terms(cd, key, cp, q, qd, u, xn, r3, fe, dt, integrator_type):
+    """The merit's knot terms on their (M,) channels, compiled once for
+    each M."""
+    return _on_host(("knot_terms", key, integrator_type),
+                    lambda *a: _JAX_KNOT_TERMS(cd, key, *a, integrator_type),
+                    cp, q, qd, u, xn, r3, fe, dt)
+
+
+def _pieces_for_this_file():
+    """Empty _PIECES when another test file asks than the last one."""
     test_file = os.environ.get("PYTEST_CURRENT_TEST", "").split("::")[0]
     if test_file != _PIECES_FILE[0]:
         _PIECES.clear()
         _PIECES_FILE[0] = test_file
+
+
+def jax_kkt_in_pieces(monkeypatch):
+    """For one test: the JAX package's KKT setup on the CPU
+    (gato_tpu/ops/kkt.py::setup_kkt, the solve's) calls its per-knot
+    linearize and knot_cost_grad_hess compiled on their own, once for a
+    knot's shapes (_piece; under the solve's vmaps once for each knot), and
+    its merit (gato_tpu/ops/merit_fast.py) its knot terms, once for each
+    batch of knots. Inlined, the dynamics and their derivatives are traced
+    and compiled again in every solve program; a knot's shapes do not
+    depend on N or B, so every solve of a plant shares them (a test's
+    solves at two horizons: about a third less time, and the merit's
+    pieces a sixth less again). The outputs equal the inlined solve's to about
+    1e-12 of its values."""
+    _pieces_for_this_file()
+    monkeypatch.setattr(jkkt, "linearize", _linearize)
+    monkeypatch.setattr(jkkt, "knot_cost_grad_hess", _knot_cost_grad_hess)
+    monkeypatch.setattr(jmerit, "_knot_terms", _knot_terms)
+
+
+def jax_in_pieces(monkeypatch, *modules):
+    """For one test: the JAX package's rollouts (gato_tpu.api.rollout) and
+    rk4_step (gato_tpu.api.common), and the functions of `modules` that
+    call fd, call solve_batched, fd and sim_step compiled on their own
+    (module docstring), the solve's KKT in its per-knot pieces
+    (jax_kkt_in_pieces)."""
+    jax_kkt_in_pieces(monkeypatch)
     monkeypatch.setattr(jrollout, "solve_batched", _solve_batched)
     monkeypatch.setattr(jrollout, "sim_step", _sim_step)
     for module in (jrollout, jcommon) + modules:
