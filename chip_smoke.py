@@ -74,7 +74,23 @@ cycle.
                 launches of each member counted and held, every solve
                 finite, the fleet's cycle as one CUDA graph equal to the
                 eager cycles bit for bit (the report and the tracking
-                errors printed, not held).
+                errors printed, not held);
+  sharded       `[sharded]`: the batch split over ranks
+                (gato_tpu_torch.parallel.sharding). In this process a world
+                of one over NCCL: the sharded solve at the main path's cell
+                equal bit for bit to the unsharded one on "solve" and
+                "iter", within bsqp_iter's limits on "staged"; an exit
+                case (N=8) that fires on the global count; best_lane; the
+                collectives' cost in the closed loop at N=32 B=32 and 512
+                (tools/shardmap_overhead.py's arms, interleaved). NCCL with
+                two ranks on the card (refused: printed). Two ranks
+                sharing the card over gloo (torchrun, this script's
+                --sharded-worker): each solves its half of the same
+                inputs, held bit for bit against this process's unsharded
+                solves (the main cell on "solve" and "iter", the exit case
+                where the halves alone would decide differently), the
+                mixed fleet with --mesh against the unsharded fleet, each
+                rank's launches; scaling_bench at one and two ranks.
 
 The pcg kernel comes in variants (layout, G, C): one CTA per problem with
 its blocks in shared memory, a thread-block cluster of C CTAs per problem,
@@ -145,6 +161,7 @@ kernel's bound from this run's inputs.
     python3 chip_smoke.py --iiwa14       # the second plant's phases only
     python3 chip_smoke.py --fleet        # the mixed fleet only
     python3 chip_smoke.py --schur-inverse  # the staged cycle, either Schur inverse
+    python3 chip_smoke.py --sharded      # the batch split over ranks only
 
 Needs one CUDA GPU; fails without one. Every failed check raises. The last
 two lines of standard output are the kernels' JSON record and
@@ -164,11 +181,13 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gato_tpu_torch import _build
 from gato_tpu_torch.api import BSQP, MPC_GATO, ExperimentRunner, add_pendulum
@@ -179,6 +198,7 @@ from gato_tpu_torch.api.config import DEFAULT_SOLVER_PARAMS as P
 from gato_tpu_torch.api.config import IIWA14_START_CONFIGS, INDY7_START_CONFIGS
 from gato_tpu_torch.dynamics import mathshim as ms
 from gato_tpu_torch.dynamics.codegen import header_path, header_stats
+from gato_tpu_torch.examples import mixed_fleet
 from gato_tpu_torch.ops import cuda_iter, cuda_kkt, cuda_merit, cuda_pcg, cuda_sim
 from gato_tpu_torch.ops import schur as schur_mod
 from gato_tpu_torch.ops.cost import CostParams
@@ -205,6 +225,7 @@ from gato_tpu_torch.ops.kkt_fast import setup_kkt_batched
 from gato_tpu_torch.ops.merit_fast import _get_cd, merit_alphas_batched
 from gato_tpu_torch.ops.pcg import pcg_solve_batched
 from gato_tpu_torch.ops.schur import build_schur
+from gato_tpu_torch.parallel import scaling_bench, sharding
 from gato_tpu_torch.robots.model import load_robot
 from gato_tpu_torch.dynamics.algorithms import ee_position, fk
 from gato_tpu_torch.solver import bsqp as bsqp_mod
@@ -2909,7 +2930,6 @@ def fleet_phase(card):
     held: the fleet report and the tracking errors (the loop is chaotic),
     ms a graphed cycle. Returns {N: the example's record, with
     "launches_per_member"}."""
-    from gato_tpu_torch.examples import mixed_fleet
     from gato_tpu_torch.parallel import fleet as fleet_mod
 
     records = {}
@@ -2965,6 +2985,395 @@ def fleet_phase(card):
     return records
 
 
+# ---- [sharded]: the batch split over ranks (gato_tpu_torch.parallel) ----
+# the routes the sharded solve is held on at the main path's cell: "solve"
+# and "iter" bit for bit (one CTA per problem, lanes independent; the rest
+# of "iter" is elementwise or per-lane torch); "staged" within the
+# iteration kernels' limits against their plain versions (STEP_SAME_MIN of
+# the lanes with the same step and a PCG count within PCG_SLACK, X
+# normwise within TRAJ_RTOL on them): its Schur build and dz are batched
+# torch calls (ops/schur.py: batched matmul, Cholesky) whose library
+# kernels may pick another algorithm by batch size
+SHARD_ROUTES = (("solve", ("auto", "auto")), ("iter", ("off", "auto")),
+                ("staged", ("off", "off")))
+# the exit case (tests/test_sharding.py's scenario on the card, float32):
+# indy7 at EXIT_N, B lanes of scaling_bench's problem under REACH_COST; the
+# first half warm-started from the state just before its lanes converge
+# (their first PCG then has no work: pcg_iters 0, converged), the second
+# half under wrenches uniform in +-40; EXIT_ITERS SQP iterations at
+# solve_ratio 0.5, so the exit fires on the global count at iteration 0,
+# where the second half's rank alone would run on. The identical lanes
+# converge together (exit_problem prints the iteration; past 40 on the
+# card), so the probe runs up to EXIT_PROBE_ITERS
+EXIT_N, EXIT_ITERS, EXIT_PROBE_ITERS = 8, 5, 80
+# the sharded world of one (NCCL) against the plain solve in the closed
+# loop, arms interleaved (plain, sharded, sharded, plain) OVERHEAD_ROUNDS
+# times, K cycles an arm (tools/shardmap_overhead.py's cells at N=32)
+OVERHEAD_CELLS, OVERHEAD_ROUNDS = ((N, 32), (N, B)), 2
+# the all-reduce alone: calls timed back to back, and one call behind a
+# kernel that spins for ALLREDUCE_SPIN cycles (about 0.1 s)
+ALLREDUCE_REPS, ALLREDUCE_SPIN = 200, 200_000_000
+# two ranks sharing the card over gloo: each rank's process (torchrun, this
+# script's --sharded-worker) within SHARD_TIMEOUT s; the mixed fleet with
+# --mesh at (N, B a member, cycles); scaling_bench at SCALING_B a rank
+SHARD_RANKS, SHARD_TIMEOUT, NCCL_PROBE_TIMEOUT = 2, 300, 90
+FLEET_MESH, SCALING_B, SCALING_K = (8, 8, 10), 256, 10
+SOLVE_FIELDS = ("X", "U", "lam", "rho", "sqp_iters", "kkt_converged", "pcg_iters",
+                "ls_min_merit", "ls_step_size", "initial_merit", "final_merit",
+                "num_iters_run")
+
+
+def solve_fields(out, mesh=None):
+    """A solve's outputs by name, every rank's lanes gathered."""
+    X, U, lam, hp, st = out
+    st = sharding.gather_stats(mesh, st)
+    d = dict(X=X, U=U, lam=lam, rho=hp.rho, **{k: getattr(st, k) for k in SOLVE_FIELDS[4:]})
+    return {k: sharding.gather_batch(mesh, v) if k in ("X", "U", "lam", "rho") else v
+            for k, v in d.items()}
+
+
+def sharded_solve(mesh, model, settings, cp, hp, X, U, lam, x_s, ref, f_ext):
+    """solve_batched_sharded on this rank's lanes of the whole batch."""
+    X, U, lam, x_s, ref, f_ext, hp = sharding.shard_solve_args(mesh, X, U, lam, x_s, ref,
+                                                              f_ext, hp)
+    return sharding.solve_batched_sharded(model, settings, cp, hp, X, U, lam, x_s, ref, f_ext,
+                                          DT, mesh=mesh)
+
+
+def same_solve(got, want, exact):
+    """(held, reading) of a sharded solve against the unsharded one: every
+    output equal bit for bit, or (exact False) the staged route's limits."""
+    diff = {k: float((got[k].double() - want[k].double()).abs().max()) for k in SOLVE_FIELDS}
+    bits = all(torch.equal(got[k], want[k]) for k in SOLVE_FIELDS)
+    if exact:
+        return bits, f"equal bit for bit {bits}; largest differences {diff}"
+    step_same = got["ls_step_size"][0] == want["ls_step_size"][0]
+    pcg_near = (got["pcg_iters"][0] - want["pcg_iters"][0]).abs() <= PCG_SLACK
+    lanes_ok = step_same & pcg_near
+    share = float(lanes_ok.float().mean())
+    traj = normwise(got["X"][lanes_ok], want["X"][lanes_ok])
+    held = share >= STEP_SAME_MIN and traj <= TRAJ_RTOL
+    return held, (f"equal bit for bit {bits}; lanes with the same step and PCG within "
+                  f"{PCG_SLACK}: {share:.4f} (limit {STEP_SAME_MIN}), X normwise there "
+                  f"{traj:.3e} (limit {TRAJ_RTOL}); largest differences {diff}")
+
+
+def exit_problem(dev):
+    """The exit case's (model, settings, cp, hp, (X, U, lam, x_s, ref,
+    f_ext)) on dev (EXIT_N, B; the constants' comment)."""
+    model = load_robot("indy7", torch.float32, dev)
+    cp = CostParams(**REACH_COST)
+    hp = HyperParams.create(B, rho=0.01, mu=10.0, pcg_tol=1e-4, device=dev)
+    X, U, lam, x_s, ref, f_ext = scaling_bench._problem(B, EXIT_N, model, dev)
+    probe = solve_batched(model, BSQPSettings(N=EXIT_N, max_sqp_iters=EXIT_PROBE_ITERS,
+                                              max_pcg_iters=100),
+                          cp, hp, X, U, lam, x_s, ref, f_ext, DT)[4]
+    if not bool(probe.kkt_converged.all()):
+        raise RuntimeError(f"[sharded] the exit case's lanes did not converge in "
+                           f"{EXIT_PROBE_ITERS} iterations")
+    k = int(probe.sqp_iters[0]) - 1  # the lanes are identical
+    log(f"[sharded] the exit case's identical lanes converge at SQP iteration {k + 1} "
+        f"(PCG with no work); the first half starts from the state after {k}")
+    Xw, Uw, lamw, hpw, _ = solve_batched(model, BSQPSettings(N=EXIT_N, max_sqp_iters=k,
+                                                             max_pcg_iters=100),
+                                         cp, hp, X, U, lam, x_s, ref, f_ext, DT)
+    half = B // 2
+    X, U, lam, rho = X.clone(), U.clone(), lam.clone(), hp.rho.clone()
+    X[:half], U[:half], lam[:half], rho[:half] = Xw[:half], Uw[:half], lamw[:half], hpw.rho[:half]
+    f_ext = f_ext.clone()
+    f_ext[half:] = torch.tensor(np.random.default_rng(5).uniform(-40, 40, (B - half, 6)),
+                                dtype=torch.float32, device=dev)
+    settings = BSQPSettings(N=EXIT_N, max_sqp_iters=EXIT_ITERS, max_pcg_iters=100,
+                            solve_ratio=0.5)
+    return model, settings, cp, HyperParams(rho, hp.drho, hp.mu, hp.pcg_tol), \
+        (X, U, lam, x_s, ref, f_ext)
+
+
+def overhead(card, dev):
+    """tools/shardmap_overhead.py on the card: at each OVERHEAD_CELLS the
+    closed loop's cycle with the plain solve and with the sharded solve of
+    a world of one (its collectives: the count's and the iterations' all
+    reduces), arms interleaved; the per-iteration cost of the collectives
+    is the difference of the medians over max_sqp_iters."""
+    mesh = sharding.make_mesh()
+    # one all-reduce of a scalar (Mesh.all_reduce: a copy and the NCCL call):
+    # the host's time a call, back to back and behind a long kernel (does
+    # the host wait for the card?), and the card's time a call
+    x = torch.ones((), device=dev)
+    for _ in range(5):
+        mesh.all_reduce(x, "sum")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(ALLREDUCE_SPIN)
+    t0 = time.perf_counter()
+    mesh.all_reduce(x, "sum")
+    behind_ms = (time.perf_counter() - t0) * 1e3
+    still_busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        mesh.all_reduce(x, "sum")
+    host_ms = (time.perf_counter() - t0) * 1e3 / ALLREDUCE_REPS
+    torch.cuda.synchronize()
+    device_ms = event_ms(lambda: mesh.all_reduce(x, "sum"), ALLREDUCE_REPS)
+    log(f"[sharded] {card}: one all-reduce of a scalar in the NCCL world of one: "
+        f"{host_ms:.4f} ms of host time a call ({ALLREDUCE_REPS} back to back), "
+        f"{device_ms:.4f} ms a call on the card (CUDA events); behind a long kernel the call "
+        f"returned in {behind_ms:.3f} ms with the kernel still running {still_busy} ("
+        + ("the host does not wait for the card)" if still_busy else "the host waited)"))
+    rows = {}
+    for n, b in OVERHEAD_CELLS:
+        fo = Fig8(dev, n, b)
+        state, i0 = fo.steady_state()
+
+        def solve_sharded(X, U, lam, x_s, ref, fo=fo):
+            Xo, Uo, lamo, _, st = sharded_solve(mesh, fo.model, fo.settings, fo.cp, fo.hp, X,
+                                                U, lam, x_s, ref, fo.f_ext)
+            return Xo, Uo, lamo, st.pcg_iters[0], st.ls_step_size[0]
+
+        arms = {"plain": fo.solve_kernel, "sharded": solve_sharded}
+        meds = {k: [] for k in arms}
+        for _ in range(OVERHEAD_ROUNDS):
+            for arm in ("plain", "sharded", "sharded", "plain"):
+                meds[arm].append(statistics.median(fo.run(state, i0, arms[arm],
+                                                          fo.plant_kernel)[1]))
+        p, s = statistics.median(meds["plain"]), statistics.median(meds["sharded"])
+        per_iter = (s - p) / P["max_sqp_iters"]
+        rows[(n, b)] = dict(plain=meds["plain"], sharded=meds["sharded"], per_iter=per_iter)
+        log(f"[sharded] {card}: the collectives' cost in the closed loop, indy7 N={n} B={b}, "
+            f"NCCL world of one against the plain solve, {OVERHEAD_ROUNDS} rounds of plain / "
+            f"sharded / sharded / plain, {K} cycles an arm (CUDA events): median cycle plain "
+            f"{p:.4f} ms, sharded {s:.4f} ms; {per_iter * 1e3:.1f} us an SQP iteration "
+            f"(per-arm medians: plain {[round(v, 4) for v in meds['plain']]}, sharded "
+            f"{[round(v, 4) for v in meds['sharded']]})")
+        del fo, state
+    return rows
+
+
+def sharded_world_of_one(f, state, i0, card, dev, exit_case):
+    """The sharded solve in a world of one over NCCL, in this process:
+    every route at the main path's cell against the unsharded solve, the
+    exit case, best_lane, then overhead(). Returns the unsharded solves
+    ({route: fields}, the exit case's fields), on the host."""
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{sharding.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh()
+        X, U, lam, x_s = state
+        ref = f.ref(i0)
+        plain = {}
+        for route, gates in SHARD_ROUTES:
+            st = f.settings_with(*gates)
+            want = solve_fields(solve_batched(f.model, st, f.cp, f.hp, X, U, lam, x_s, ref,
+                                              f.f_ext, DT))
+            reset_launches()
+            got_out = sharded_solve(mesh, f.model, st, f.cp, f.hp, X, U, lam, x_s, ref, f.f_ext)
+            counts = launches()
+            got = solve_fields(got_out, mesh)
+            held, reading = same_solve(got, want, exact=route != "staged")
+            log(f"[sharded] world of one (NCCL), route {route}, indy7 N={N} B={B}: launches "
+                f"{counts}; against the unsharded solve: {reading}")
+            if not held:
+                raise RuntimeError(f"[sharded] route {route}: the sharded solve differs")
+            if route == "solve":
+                b_got = int(sharding.best_lane(got_out[4].final_merit, mesh))
+                m = want["final_merit"]
+                b_want = int(torch.argmin(torch.where(torch.isfinite(m), m, torch.inf)))
+                log(f"[sharded] best_lane {b_got}, the unsharded merits' argmin {b_want}")
+                if b_got != b_want:
+                    raise RuntimeError("[sharded] best_lane differs from the unsharded argmin")
+            plain[route] = {k: v.cpu() for k, v in want.items()}
+        model, st, cp, hp, args = exit_case
+        want = solve_fields(solve_batched(model, st, cp, hp, *args, DT))
+        reset_launches()
+        got = solve_fields(sharded_solve(mesh, model, st, cp, hp, *args), mesh)
+        counts = launches()
+        held, reading = same_solve(got, want, exact=True)
+        fired = int(want["num_iters_run"]) < EXIT_ITERS
+        log(f"[sharded] world of one, the exit case (indy7 N={EXIT_N} B={B}, {EXIT_ITERS} SQP "
+            f"iterations, solve_ratio 0.5): iterations run {int(got['num_iters_run'])} "
+            f"(unsharded {int(want['num_iters_run'])}), converged "
+            f"{int(got['kkt_converged'].sum())} of {B}; launches {counts}; {reading}")
+        if not (held and fired):
+            raise RuntimeError("[sharded] the exit case differs from the unsharded solve, or "
+                               "its exit did not fire")
+        overhead(card, dev)
+    finally:
+        dist.destroy_process_group()
+    return plain, {k: v.cpu() for k, v in want.items()}
+
+
+def nccl_two_ranks_probe(card):
+    """Two NCCL ranks on the one card (--nccl-probe): NCCL refuses them,
+    so the ranks sharing a card take gloo. Printed, not held."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={SHARD_RANKS}", os.path.abspath(__file__), "--nccl-probe"]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=NCCL_PROBE_TIMEOUT)
+        what, text = f"exit code {r.returncode}", r.stdout + r.stderr
+    except subprocess.TimeoutExpired as e:
+        what = f"no end within {NCCL_PROBE_TIMEOUT} s (killed)"
+        text = "".join(o.decode(errors="replace") if isinstance(o, bytes) else (o or "")
+                       for o in (e.stdout, e.stderr))
+    lines = [ln.strip() for ln in text.splitlines() if re.search(
+        r"Error|Duplicate|ncclInvalidUsage|probe:", ln)]
+    log(f"[sharded] {card}: two NCCL ranks on one card: {what} after "
+        f"{time.perf_counter() - t0:.1f} s; {' | '.join(dict.fromkeys(lines))[-1500:]}")
+
+
+def nccl_probe_rank():
+    """One rank of nccl_two_ranks_probe: an NCCL all-reduce with every rank
+    on cuda:0."""
+    dist.init_process_group("nccl")
+    torch.cuda.set_device(0)
+    t = torch.ones(1, device="cuda:0")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"probe: NCCL all-reduce on one card gave {t.item()}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_worker(path):
+    """One rank of the two gloo ranks sharing the card (--sharded-worker,
+    under torchrun): the main cell on "solve" and "iter", the exit case,
+    the mixed fleet with --mesh and scaling_bench, each rank's launches of
+    each counted; rank 0 saves what it gathered to path/out.pt."""
+    made = sharding.init_from_env("cuda")
+    try:
+        mesh = sharding.make_mesh()
+        inp = torch.load(os.path.join(path, "inputs.pt"), weights_only=False)
+        model = load_robot("indy7", torch.float32, mesh.device)
+        dev = mesh.device
+        args = [t.to(dev) for t in inp["main"]]
+        hp = HyperParams(*(t.to(dev) for t in inp["main_hp"]))
+        cp = CostParams(**{k: P[k] for k in ("q_cost", "qd_cost", "u_cost", "N_cost",
+                                             "q_lim_cost", "vel_lim_cost", "ctrl_lim_cost")})
+        out, counts = {}, {}
+        for route, gates in SHARD_ROUTES[:2]:
+            st = BSQPSettings(N=N, max_sqp_iters=P["max_sqp_iters"],
+                              max_pcg_iters=P["max_pcg_iters"], solve_ratio=P["solve_ratio"],
+                              solve_kernel=gates[0], iter_kernel=gates[1])
+            reset_launches()
+            got = solve_fields(sharded_solve(mesh, model, st, cp, hp, *args), mesh)
+            counts[route] = launches()
+            out[route] = {k: v.cpu() for k, v in got.items()}
+        ex = [t.to(dev) for t in inp["exit"]]
+        ex_hp = HyperParams(*(t.to(dev) for t in inp["exit_hp"]))
+        st = BSQPSettings(N=EXIT_N, max_sqp_iters=EXIT_ITERS, max_pcg_iters=100,
+                          solve_ratio=0.5)
+        reset_launches()
+        got = solve_fields(sharded_solve(mesh, model, st, CostParams(**REACH_COST), ex_hp, *ex),
+                           mesh)
+        counts["exit"] = launches()
+        out["exit"] = {k: v.cpu() for k, v in got.items()}
+        n, b, cycles = FLEET_MESH
+        reset_launches()
+        out["fleet"] = mixed_fleet.cli(["--mesh", "--N", str(n), "--B", str(b),
+                                        "--cycles", str(cycles)])
+        counts["fleet"] = launches()
+        out["scaling"] = scaling_bench.run(per_rank_batch=SCALING_B, N=N, k=SCALING_K)
+        every = mesh.all_gather(torch.tensor([[counts[c][w] for c in counts for w in WRAPPERS]],
+                                             device=dev))
+        out["launches"] = [{c: {w: int(row[i * len(WRAPPERS) + j])
+                                for j, w in enumerate(WRAPPERS)}
+                            for i, c in enumerate(counts)} for row in every.cpu()]
+        out["backend"] = dist.get_backend()
+        if mesh.rank == 0:
+            torch.save(out, os.path.join(path, "out.pt"))
+    finally:
+        if made:
+            dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(f, state, i0, card, dev):
+    """[sharded]: the batch split over ranks. In this process a world of
+    one over NCCL (sharded_world_of_one); NCCL with two ranks on the one
+    card (nccl_two_ranks_probe); then two ranks sharing the card over gloo
+    (torchrun, sharded_worker), each solving its half of the same global
+    inputs, held against this process's unsharded solves: the main path's
+    cell on "solve" and "iter" and the exit case bit for bit, the mixed
+    fleet with --mesh equal to the unsharded fleet (its report and
+    tracking errors), each rank's launches; scaling_bench at one and two
+    ranks printed. A rank that fails or does not end in SHARD_TIMEOUT
+    fails the phase."""
+    t0 = time.perf_counter()
+    exit_case = exit_problem(dev)
+    model, st, cp, hp, ex_args = exit_case
+    plain, plain_exit = sharded_world_of_one(f, state, i0, card, dev, exit_case)
+    half = B // 2
+    alone = [int(solve_batched(model, st, cp, HyperParams(*(t[s] for t in (
+        hp.rho, hp.drho, hp.mu, hp.pcg_tol))), *(a[s] for a in ex_args), DT)[4].num_iters_run)
+        for s in (slice(0, half), slice(half, B))]
+    log(f"[sharded] the exit case's halves alone: {alone[0]} and {alone[1]} iterations run "
+        f"(the whole batch: {int(plain_exit['num_iters_run'])}): the two ranks' local counts "
+        f"would decide differently")
+    if alone[0] == alone[1]:
+        raise RuntimeError("[sharded] the exit case does not tell a global exit from a local one")
+    nccl_two_ranks_probe(card)
+    n, b, cycles = FLEET_MESH
+    fleet_plain = mixed_fleet.main(cycles=cycles, B=b, N=n)
+    X, U, lam, x_s = state
+    with tempfile.TemporaryDirectory(prefix="gato_sharded_") as tmp:
+        torch.save(dict(main=[t.cpu() for t in (X, U, lam, x_s, f.ref(i0), f.f_ext)],
+                        main_hp=[t.cpu() for t in (f.hp.rho, f.hp.drho, f.hp.mu, f.hp.pcg_tol)],
+                        exit=[t.cpu() for t in ex_args],
+                        exit_hp=[t.cpu() for t in (hp.rho, hp.drho, hp.mu, hp.pcg_tol)]),
+                   os.path.join(tmp, "inputs.pt"))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={SHARD_RANKS}", os.path.abspath(__file__),
+               "--sharded-worker", tmp]
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=SHARD_TIMEOUT)
+        if r.returncode != 0 or not os.path.exists(os.path.join(tmp, "out.pt")):
+            log((r.stdout + r.stderr)[-4000:])
+            raise RuntimeError(f"[sharded] the two gloo ranks failed (exit code {r.returncode})")
+        got = torch.load(os.path.join(tmp, "out.pt"), weights_only=False)
+    ranks_s = time.perf_counter() - t1
+    log(f"[sharded] two ranks sharing the card over {got['backend']} (torchrun, "
+        f"{ranks_s:.1f} s for both processes); launches of each rank: {got['launches']}")
+    for route in ("solve", "iter"):
+        held, reading = same_solve(got[route], plain[route], exact=True)
+        log(f"[sharded] two gloo ranks, route {route}, indy7 N={N} B={B}: against the unsharded "
+            f"solve: {reading}")
+        if not held:
+            raise RuntimeError(f"[sharded] two ranks, route {route}: the lanes differ")
+    held, reading = same_solve(got["exit"], plain_exit, exact=True)
+    log(f"[sharded] two gloo ranks, the exit case: iterations run "
+        f"{int(got['exit']['num_iters_run'])} (unsharded {int(plain_exit['num_iters_run'])}); "
+        f"{reading}")
+    if not held:
+        raise RuntimeError("[sharded] two ranks: the exit case differs from the unsharded solve")
+    fl = got["fleet"]
+    same_fleet = (fl["final_report"] == fleet_plain["final_report"]
+                  and fl["tracking_err_m"] == fleet_plain["tracking_err_m"])
+    log(f"[sharded] the mixed fleet with --mesh over two ranks (indy7 + iiwa14, N={n}, B={b} "
+        f"each, {cycles} cycles; mesh {fl['mesh']}): report and tracking errors equal to the "
+        f"unsharded fleet's {same_fleet}; winner {fl['final_report']['winner']}, tracking "
+        f"{fl['tracking_err_m']}")
+    # each rank's launches: its solves' kernels; the fleet's plant steps on
+    # rank 0 alone, which holds lane 0
+    iters = P["max_sqp_iters"]
+    want = [dict(solve=dict(bsqp_iter=iters), iter=dict(iter=iters, merit=iters),
+                 exit=dict(bsqp_iter=int(plain_exit["num_iters_run"])),
+                 fleet=dict(bsqp_iter=2 * cycles * iters, rk4=2 * cycles if rank == 0 else 0))
+            for rank in range(SHARD_RANKS)]
+    counts_ok = all(got["launches"][rank][case] == {w: want[rank][case].get(w, 0)
+                                                    for w in WRAPPERS}
+                    for rank in range(SHARD_RANKS) for case in want[rank])
+    if not (same_fleet and counts_ok and fl["mesh"] == SHARD_RANKS):
+        raise RuntimeError(f"[sharded] the fleet with --mesh differs from the unsharded one, or "
+                           f"the ranks' launches {got['launches']} are not {want}")
+    sc = got["scaling"]
+    log(f"[sharded] {card}: scaling_bench over gloo ranks sharing the card (the sharded "
+        f"program's overhead, not hardware scaling), indy7 N={N}, {SCALING_B} lanes a rank, "
+        f"{SCALING_K} chained solves: " + "; ".join(
+            f"{k} rank(s) B={v['batch']}: {v['ms']:.4f} ms a solve, {v['solves_per_s']:.1f} "
+            f"solves/s, efficiency {v['efficiency']:.4f}" for k, v in sc.items()))
+    log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--save-capped", metavar="PATH",
@@ -2990,12 +3399,21 @@ def main(argv=None):
     parser.add_argument("--schur-inverse", action="store_true",
                         help="only build the kernels and time the staged cycle with the "
                              "Schur inverse in either form (schur_inverse_phase), then stop")
+    parser.add_argument("--sharded", action="store_true",
+                        help="only build the kernels and run the batch split over ranks "
+                             "(sharded_phase), then stop")
+    parser.add_argument("--sharded-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--nccl-probe", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--tracking-spread", action="store_true",
                         help="only build the kernels and print the N=32 tracking gate "
                              "and step check on nearby inputs (tracking_spread), then stop")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
+    if args.sharded_worker:  # one rank of sharded_phase's two, under torchrun
+        return sharded_worker(args.sharded_worker)
+    if args.nccl_probe:  # one rank of nccl_two_ranks_probe's two
+        return nccl_probe_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -3023,6 +3441,11 @@ def main(argv=None):
         return 0
     if args.schur_inverse:
         schur_inverse_phase(dev, card)
+        return 0
+    if args.sharded:
+        f = Fig8(dev)
+        state, i0 = f.steady_state()
+        sharded_phase(f, state, i0, card, dev)
         return 0
     if args.rollouts:
         f = Fig8(dev)
@@ -3203,6 +3626,8 @@ def main(argv=None):
     kern_i, bench_i, staged_i, goals_i = iiwa14_phases(dev, card, pend)
     # ---- the mixed indy7 + iiwa14 fleet, at N=8 and past 128 knots ----
     fleet_i = fleet_phase(card)
+    # ---- the batch split over ranks: a world of one, two ranks on the card ----
+    sharded_phase(f, state, i0, card, dev)
 
     # ---- a long horizon: N=256 B=64, where "auto" takes the staged route ----
     if select_route("auto", "auto", N_LONG, True) != "staged":

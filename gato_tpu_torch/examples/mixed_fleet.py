@@ -21,11 +21,17 @@ replays, after the replays are held equal bit for bit to the same cycles
 run eagerly.
 
     python -m gato_tpu_torch.examples.mixed_fleet [--cycles 60] [--B 8] [--N 8]
-        [--device-time] [--save PATH]
+        [--device-time] [--save PATH] [--device cpu]
+    torchrun --nproc-per-node <ranks> -m gato_tpu_torch.examples.mixed_fleet --mesh ...
 
 --save merges the run into the JSON record at PATH under the key
-N<N>_B<B>, with the card's name and power limit. The sharding over devices
-(--mesh) is not ported and raises.
+N<N>_B<B>, with the card's name and power limit. --mesh splits every
+member's batch over the ranks of torchrun's process group
+(parallel/sharding.py; without torchrun a group of this process alone): one
+card a rank over NCCL, or gloo where ranks share a card or run on the CPU;
+each member's B must split evenly over the ranks. Rank 0 holds lane 0,
+steps each member's plant and sends the new state to the other ranks; it
+alone prints and saves, with "mesh": the number of ranks.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api.common import figure8, rk4_step
 from ..api.config import DEFAULT_SOLVER_PARAMS, INDY7_START_CONFIGS
@@ -50,8 +57,8 @@ from ..ops.cuda_pcg import pcg_solve_batched_cuda
 from ..ops.cuda_sim import rk4_step_batched
 from ..ops.cuda_solve import sqp_iter_cuda
 from ..ops.schur import capturable_inverse
-from ..parallel.fleet import (SHARDING_ITEM, FleetMember, fleet_report,
-                              solve_fleet)
+from ..parallel.fleet import FleetMember, fleet_report, solve_fleet
+from ..parallel.sharding import init_from_env, make_mesh
 from ..robots.model import load_robot
 from ..solver.types import BSQPSettings, HyperParams
 
@@ -193,12 +200,26 @@ def device_cycle_time(members, trajs, N, reps=50, same_cycles=4):
     return dict(ms=ms, launches=launches, same_as_eager=True)
 
 
-def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cuda"):
+def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cuda",
+         use_mesh=False):
     """`cycles` closed-loop cycles of the fleet (solve_fleet, fleet_report,
     each member's lane-0 plant step, the next reference window), as the JAX
     example's main. Returns its record: the last cycle's fleet report, each
     member's EE tracking error over the last three quarters of the cycles
-    and, with device_time, the graphed cycle's time (device_cycle_time)."""
+    and, with device_time, the graphed cycle's time (device_cycle_time).
+    use_mesh: every member's batch split over the ranks of the process
+    group (make_mesh on `device`; every rank calls this and gets the
+    record, rank 0 prints and saves it)."""
+    mesh = None
+    if use_mesh:
+        mesh = make_mesh(device=device)
+        device = mesh.device
+        if B % mesh.world:
+            raise ValueError(f"--mesh: each member's B={B} must split evenly over the "
+                             f"{mesh.world} ranks")
+        if device_time:
+            raise ValueError("--device-time captures the fleet's cycle into one CUDA graph "
+                             "on one card: not with --mesh")
     members, trajs, errs = [], {}, {}
     for name, q0, off, amp in SPECS:
         m, traj = make_member(name, name, q0, off, B, N, dt, seed=0, amp=amp, device=device)
@@ -207,13 +228,19 @@ def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cud
         errs[name] = []
     report = None
     for k in range(cycles):
-        members, stats = solve_fleet(members)
+        members, stats = solve_fleet(members, mesh=mesh)
         report = fleet_report(members, stats)
         nxt = []
         for m in members:
             traj = trajs[m.name]
-            # lane 0 (the zero-wrench hypothesis) controls the simulated arm
-            x1 = rk4_step(m.model, m.x_s[0], m.U[0, 0], dt, substeps=4)
+            # lane 0 (the zero-wrench hypothesis) controls the simulated arm;
+            # under a mesh it is rank 0's, which sends the plant's new state
+            if mesh is None or mesh.rank == 0:
+                x1 = rk4_step(m.model, m.x_s[0], m.U[0, 0], dt, substeps=4)
+            else:
+                x1 = torch.empty_like(m.x_s[0])
+            if mesh is not None:
+                x1 = mesh.broadcast(x1, 0)
             ee = ee_position(m.model, x1[:m.model.nq])[:3]
             goal = torch.tensor(traj[k + 1, :3], dtype=ee.dtype, device=ee.device)
             errs[m.name].append(float(torch.linalg.norm(ee - goal)))
@@ -227,7 +254,7 @@ def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cud
 
     steady = cycles // 4
     out = {"cycles": cycles, "B_per_member": B, "N": N,
-           "total_lanes": B * len(members), "mesh": None,
+           "total_lanes": B * len(members), "mesh": None if mesh is None else mesh.world,
            "final_report": report,
            "tracking_err_m": {
                n: {"mean": round(float(np.mean(e[steady:])), 4),
@@ -242,10 +269,11 @@ def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cud
                             equal_to_eager=t["same_as_eager"])
         print(f"fleet per-cycle device time: {t['ms'] * 1e3:.1f} us "
               f"({out['lane_solves_per_s']:.0f} lane-solves/s)")
-    print(json.dumps(out, indent=1))
-    if save:
-        _save(save, out)
-        print(f"saved -> {save}")
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out, indent=1))
+        if save:
+            _save(save, out)
+            print(f"saved -> {save}")
     return out
 
 
@@ -274,21 +302,28 @@ def _save(path, out):
 
 
 def cli(argv=None):
-    """The command line: the JAX example's flags; --mesh raises."""
+    """The command line: the JAX example's flags, and --device. With --mesh
+    it joins torchrun's process group (init_from_env), or makes a group of
+    this process alone, and leaves the group it made."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cycles", type=int, default=60)
     ap.add_argument("--B", type=int, default=8)
     ap.add_argument("--N", type=int, default=8)
     ap.add_argument("--mesh", action="store_true",
-                    help="shard every member's batch over the devices (not ported: raises)")
+                    help="split every member's batch over the ranks (torchrun's process group)")
     ap.add_argument("--device-time", action="store_true",
                     help="also measure the fleet's cycle as one CUDA graph (device_cycle_time)")
     ap.add_argument("--save", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default), or cpu: the plain route, gloo ranks")
     a = ap.parse_args(argv)
-    if a.mesh:
-        raise NotImplementedError(f"--mesh shards each member's batch over devices, which "
-                                  f"is not ported ({SHARDING_ITEM})")
-    return main(cycles=a.cycles, B=a.B, N=a.N, save=a.save, device_time=a.device_time)
+    made = a.mesh and init_from_env(a.device)
+    try:
+        return main(cycles=a.cycles, B=a.B, N=a.N, save=a.save, device_time=a.device_time,
+                    device=a.device, use_mesh=a.mesh)
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -272,7 +272,8 @@ def _select(carry: IterState, new: IterState, exit_now, it0: bool):
 
 def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
                       settings: BSQPSettings, X, U, lam, x_s, ref, f_ext,
-                      rho, drho, mu, pcg_tol, dt: float, device_exit: bool = False):
+                      rho, drho, mu, pcg_tol, dt: float, device_exit: bool = False,
+                      mesh=None):
     """Run up to settings.max_sqp_iters iterations of `iter_fn` (one of the
     sqp_iter_* functions above) with the whole-batch exit:
     after each iteration, once the number of converged problems reaches
@@ -285,7 +286,18 @@ def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
     the last one. With device_exit=True it reads nothing: all
     max_sqp_iters iterations run, a sticky flag on the device marks the
     exit, and every iteration after it is discarded by torch.where; the
-    outputs equal the host-exit form's bit for bit."""
+    outputs equal the host-exit form's bit for bit.
+
+    With a `mesh` (parallel/sharding.py::Mesh) the B problems are one
+    rank's share of mesh.world x B: the converged count is all-reduced over
+    the ranks after every iteration and the threshold is the global
+    batch's, so every rank exits at the same iteration (the JAX package's
+    psum, gato_tpu/solver/bsqp.py:281-289). device_exit then needs a
+    collective that stays on the device (ValueError otherwise)."""
+    if mesh is not None and device_exit and not mesh.reduces_on_device(X.device):
+        raise ValueError("device_exit=True with a gloo mesh on the card: gloo takes the "
+                         "converged count through host memory, which reads the device; "
+                         "use NCCL (a card per rank) or the host exit")
     B = X.shape[0]
     iters = settings.max_sqp_iters
     zero = torch.zeros(B, dtype=X.dtype, device=X.device)
@@ -294,11 +306,14 @@ def sqp_solve_chained(iter_fn, model: RobotModel, cp: CostParams,
     pcg_all = torch.zeros(iters, B, dtype=torch.int32, device=X.device)
     lsm_all = torch.zeros(iters, B, dtype=X.dtype, device=X.device)
     lss_all = torch.zeros(iters, B, dtype=X.dtype, device=X.device)
-    thresh = B * settings.solve_ratio
+    thresh = (B if mesh is None else B * mesh.world) * settings.solve_ratio
     exited = torch.zeros((), dtype=torch.bool, device=X.device)
     for it in range(iters):
         new, stats = iter_fn(model, cp, prob, carry, settings, seeded=it > 0)
-        exit_now = new.conv.sum() >= thresh
+        solved = new.conv.sum()
+        if mesh is not None:
+            solved = mesh.all_reduce(solved, "sum")
+        exit_now = solved >= thresh
         selected = _select(carry, new, exit_now, it0=it == 0)
         pcg = stats.pcg_iters
         if device_exit:

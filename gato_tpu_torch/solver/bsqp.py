@@ -16,7 +16,9 @@ With linear_solver="btd" every N takes the staged route with the direct
 block-tridiagonal solve (ops/btd_solve.py) in place of the pcg kernel
 ("btd"). Every route runs under the chained driver (sqp_solve_chained),
 which carries the reference's whole-batch solve_ratio exit. On CPU tensors
-each route runs the plain PyTorch versions of its kernels.
+each route runs the plain PyTorch versions of its kernels. With a `mesh`
+(parallel/sharding.py) the solve is one rank's share of a batch split over
+processes: the exit reads the global converged count.
 """
 
 from __future__ import annotations
@@ -63,13 +65,17 @@ def select_route(solve_kernel: str, iter_kernel: str, N: int,
 
 def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
                   hp: HyperParams, X, U, lam, x_s, ref, f_ext, dt: float,
-                  device_exit: bool = False):
+                  device_exit: bool = False, mesh=None):
     """X (B,N,nx), U (B,N-1,nu), lam (B,N,nx) warm-started duals, x_s
     (B,nx), ref (B,N,6), f_ext (B,6) per-problem EE-frame wrench
     hypotheses, dt a float. Returns (X, U, lam, hp_out, stats).
     device_exit=True keeps the whole-batch exit on the device (every
     iteration runs, those after the exit are discarded; equal bit for bit),
-    so that a CUDA graph can hold the solve (api/rollout.py)."""
+    so that a CUDA graph can hold the solve (api/rollout.py). `mesh` (a
+    parallel/sharding.py Mesh) makes these B lanes one rank's share: the
+    exit counts every rank's converged lanes and num_iters_run is the most
+    over the ranks (gato_tpu/solver/bsqp.py:110-111, 281-289); None solves
+    the B lanes alone."""
     if settings.linear_solver not in LINEAR_SOLVERS:
         raise ValueError(f"linear_solver={settings.linear_solver!r}: expected "
                          f"one of {LINEAR_SOLVERS}")
@@ -79,15 +85,18 @@ def solve_batched(model: RobotModel, settings: BSQPSettings, cp: CostParams,
     (Xo, Uo, lam_o, rho_o, _drho, conv, merit0, merit_f, sqp_iters, pcg_it,
      ls_merit, ls_step) = sqp_solve_chained(
         ITER_FNS[route], model, cp, settings, X, U, lam, x_s, ref, f_ext,
-        hp.rho, hp.drho, hp.mu, hp.pcg_tol, dt, device_exit=device_exit)
+        hp.rho, hp.drho, hp.mu, hp.pcg_tol, dt, device_exit=device_exit, mesh=mesh)
     # drho resets to its init after every solve (bsqp.cuh:189)
     hp_out = HyperParams(rho=rho_o, drho=hp.drho, mu=hp.mu, pcg_tol=hp.pcg_tol)
     sqp_iters = sqp_iters.to(torch.int32)
+    iters_run = sqp_iters.max()
+    if mesh is not None:
+        iters_run = mesh.all_reduce(iters_run, "max")
     stats = SQPStats(
         sqp_iters=sqp_iters, kkt_converged=conv.to(torch.int32),
         pcg_iters=pcg_it, ls_min_merit=ls_merit, ls_step_size=ls_step,
         initial_merit=merit0, final_merit=merit_f,
-        num_iters_run=sqp_iters.max())
+        num_iters_run=iters_run)
     return Xo, Uo, lam_o, hp_out, stats
 
 

@@ -598,3 +598,72 @@ def test_fleet_graph_replay_equals_eager(dev, N):
     per = dict(bsqp_iter=1, rk4=1) if N <= 128 else dict(kkt=1, pcg=1, merit=1, rk4=1)
     assert out["same_as_eager"] and out["ms"] > 0
     assert out["launches"] == {k: 2 * per.get(k, 0) for k in mf.WRAPPERS}
+
+
+@pytest.fixture
+def world_of_one(dev, request):
+    """A process group of this process alone over request.param's backend
+    (NCCL or gloo), left after the test."""
+    import torch.distributed as dist
+    from gato_tpu_torch.parallel.sharding import free_port
+
+    dist.init_process_group(request.param, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    yield request.param
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world_of_one", ["nccl"], indirect=True)
+@pytest.mark.parametrize("gates", [("auto", "auto"), ("off", "auto")], ids=("solve", "iter"))
+def test_sharded_solve_world_of_one(dev, world_of_one, gates):
+    """solve_batched_sharded over an NCCL world of one on the card equals
+    solve_batched bit for bit on routes "solve" and "iter" (the count's
+    all-reduce on the card), with the exit read on the host and kept on
+    the device; best_lane is the unsharded merits' argmin."""
+    from gato_tpu_torch.parallel.sharding import (best_lane, make_mesh, shard_solve_args,
+                                                  solve_batched_sharded)
+
+    B, N = 64, 32
+    p = _problem(dev, B, N, seed=11)
+    model = load_robot("indy7", torch.float32, dev)
+    hp = HyperParams.create(B, rho=P["rho"], mu=P["mu"], pcg_tol=P["pcg_tol"], device=dev)
+    st = BSQPSettings(N=N, max_sqp_iters=3, max_pcg_iters=P["max_pcg_iters"],
+                      solve_ratio=0.25, solve_kernel=gates[0], iter_kernel=gates[1])
+    args = [p[k] for k in ("X", "U", "lam", "x_s", "ref", "f_ext")]
+    mesh = make_mesh()
+    for device_exit in (False, True):
+        want = solve_batched(model, st, COST, hp, *args, 0.01, device_exit=device_exit)
+        X, U, lam, x_s, ref, fe, hp_s = shard_solve_args(mesh, *args, hp)
+        got = solve_batched_sharded(model, st, COST, hp_s, X, U, lam, x_s, ref, fe, 0.01,
+                                    mesh=mesh, device_exit=device_exit)
+        torch.cuda.synchronize()
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert torch.equal(got[3].rho, want[3].rho)
+        for k in ("sqp_iters", "kkt_converged", "pcg_iters", "ls_step_size", "final_merit",
+                  "num_iters_run"):
+            assert torch.equal(getattr(got[4], k), getattr(want[4], k)), k
+    m = want[4].final_merit
+    assert int(best_lane(got[4].final_merit, mesh)) == int(
+        torch.argmin(torch.where(torch.isfinite(m), m, torch.inf)))
+
+
+@pytest.mark.parametrize("world_of_one", ["gloo"], indirect=True)
+def test_sharded_device_exit_over_gloo_raises(dev, world_of_one):
+    """A gloo mesh on the card takes the count through host memory: the
+    device exit (a CUDA graph's) refuses it, and the fleet's mesh over it
+    still solves with the host exit, equal to the unsharded fleet."""
+    from gato_tpu_torch.examples import mixed_fleet as mf
+    from gato_tpu_torch.parallel import fleet
+    from gato_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh()
+    members = [mf.make_member(n, n, q0, off, 4, 8, 0.01, 0, amp, device=dev)[0]
+               for n, q0, off, amp in mf.SPECS]
+    with pytest.raises(ValueError, match="gloo"):
+        fleet.solve_fleet(members, mesh=mesh, device_exit=True)
+    want, _ = fleet.solve_fleet(members)
+    got, stats = fleet.solve_fleet(members, mesh=mesh)
+    for g, w in zip(got, want):
+        assert torch.equal(g.X, w.X) and torch.equal(g.U, w.U) and torch.equal(g.lam, w.lam)
+    assert fleet.fleet_report(got, stats)["total_lanes"] == 8

@@ -11,8 +11,10 @@ example (gato_tpu_torch/examples/mixed_fleet.py) against the JAX package's
   the Krylov loops stop within 2 iterations of each other);
 - fleet_report equal to the JAX package's on the same statistics, with
   the would-be winner's merit poisoned, and with every lane dead;
-- the example's main on the CPU at N=8 and past 128 knots, and the mesh,
-  which is not ported.
+- the example's main on the CPU at N=8 and past 128 knots;
+- solve_fleet(mesh=...) over an in-process gloo group of one rank, and the
+  example's --mesh on the CPU (tests/test_torch_sharding.py splits the
+  fleet over two ranks).
 """
 
 from types import SimpleNamespace
@@ -21,12 +23,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from gato_tpu.parallel import fleet as jfleet
 from gato_tpu.solver.types import BSQPSettings as JSettings
 from gato_tpu.solver.types import HyperParams as JHyperParams
 from gato_tpu_torch.examples import mixed_fleet
 from gato_tpu_torch.parallel import fleet
+from gato_tpu_torch.parallel.sharding import free_port, make_mesh
 from gato_tpu_torch.solver.types import BSQPSettings, HyperParams
 from torch_port_helpers import DEFAULT_COST, costs, jax_kkt_in_pieces, models, t64
 
@@ -147,11 +151,29 @@ def test_example_runs_on_the_cpu(N):
                                       {m.name: t for m, t in members}, N)
 
 
-def test_mesh_raises():
-    """The batch sharding over devices is not ported: solve_fleet with a
-    mesh, and the example's --mesh, raise NotImplementedError naming the
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        fleet.solve_fleet([], mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        mixed_fleet.cli(["--mesh"])
+def test_mesh_of_one_rank():
+    """solve_fleet over a mesh of one gloo rank (its collectives run on a
+    group of one) equals the unsharded fleet bit for bit, members placed on
+    it; the example's --mesh runs on the CPU in a group of one that it
+    makes and leaves."""
+    _, tmembers = _fleets(8)
+    want, want_stats = fleet.solve_fleet(tmembers)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cpu")
+        got, got_stats = fleet.solve_fleet(tmembers, mesh=mesh)
+        report = fleet.fleet_report(got, got_stats)
+    finally:
+        dist.destroy_process_group()
+    for w, g, ws, gs in zip(want, got, want_stats, got_stats):
+        assert g.mesh == mesh
+        for k in ("X", "U", "lam"):
+            assert torch.equal(getattr(g, k), getattr(w, k)), k
+        assert torch.equal(g.hp.rho, w.hp.rho)
+        for k in STATS + ("num_iters_run",):
+            assert torch.equal(getattr(gs, k), getattr(ws, k)), k
+    assert report == fleet.fleet_report(want, want_stats)
+    out = mixed_fleet.cli(["--mesh", "--cycles", "2", "--B", "2", "--device", "cpu"])
+    assert out["mesh"] == 1 and not dist.is_initialized()
+    assert set(out["final_report"]["members"]) == set(PLANTS)
