@@ -242,11 +242,52 @@ def _gen_fd(cd, nq):
 
 
 def _sqrt(x):
-    """torch's square root, also of a numpy channel (numpy's rounds some
-    float32 values otherwise)."""
-    if isinstance(x, np.ndarray):
-        return torch.sqrt(torch.from_numpy(x)).numpy()
+    """torch's square root, also of a numpy channel or a numpy scalar
+    (numpy's rounds some float32 values otherwise)."""
+    if isinstance(x, (np.ndarray, np.generic)):
+        return torch.sqrt(torch.from_numpy(np.asarray(x))).numpy()[()]
     return torch.sqrt(x)
+
+
+def _on_channel(fn):
+    """A mathshim function of a channel as the straight-line programs call
+    it: torch's, also on a numpy channel (through a tensor view of it)."""
+    def g(x, *consts):
+        if isinstance(x, np.ndarray):
+            return fn(torch.from_numpy(x), *consts).numpy()
+        return fn(x, *consts)
+    return g
+
+
+_PROGRAM_SCOPE = {"T": float, "gsqrt": _sqrt, "gsin": _on_channel(torch.sin),
+                  "gcos": _on_channel(torch.cos), "glog": _on_channel(torch.log),
+                  "gabs": _on_channel(torch.abs), "gmax": _on_channel(torch.clamp_min)}
+
+
+def _straight_line(em, out, params, label):
+    """The lines of `em` that the channels in `out` (lists and tuples of
+    channels) need, in the order they were recorded, as one Python function
+    of `params` that returns `out` with each channel's value (None a
+    structural zero, a float a constant)."""
+    def flat(x):
+        return [c for y in x for c in flat(y)] if isinstance(x, (list, tuple)) else [x]
+
+    def value(x):
+        if isinstance(x, list):
+            return "[" + ", ".join(value(y) for y in x) + "]"
+        if isinstance(x, tuple):
+            return "(" + "".join(value(y) + ", " for y in x) + ")"
+        if isinstance(x, Sym):
+            return x.name
+        return "None" if x is None else repr(float(x))
+
+    need = em.live(flat(out))
+    body = [f"    {name} = {expr}" for name, expr, _ in em.lines if name in need]
+    src = (f"def program({', '.join(params)}):\n" + "\n".join(body)
+           + f"\n    return {value(out)}\n")
+    scope = dict(_PROGRAM_SCOPE)
+    exec(compile(src, f"<{label}>", "exec"), scope)
+    return scope["program"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,7 +295,7 @@ def fd_program(key: str, with_fe: bool):
     """cd.fd of the plant registered under `key`, with a wrench or without,
     as one straight-line Python function fd(cs, ss, qd, u, fe) -> qdd on
     numpy or torch channels: the trace's lines (Python as they are, with T
-    = float and gsqrt the channel's square root) in the order cd.fd runs
+    = float and the math calls torch's, _PROGRAM_SCOPE) in the order cd.fd runs
     them, so every value equals the traced call's bit for bit. The trace
     (its constant folding and the channel algebra's dispatch) runs once,
     not at every call."""
@@ -262,13 +303,60 @@ def fd_program(key: str, with_fe: bool):
     em = Emitter()
     cs, ss, qd, u = (_inputs(em, name, cd.nq) for name in ("cs", "ss", "qd", "u"))
     qdd = cd.fd(cs, ss, qd, u, f_ext=_inputs(em, "fe", 6) if with_fe else None)
-    need = em.live(qdd)
-    body = [f"    {name} = {expr}" for name, expr, _ in em.lines if name in need]
-    out = ", ".join(ch.name if isinstance(ch, Sym) else repr(ch) for ch in qdd)
-    src = "def fd(cs, ss, qd, u, fe):\n" + "\n".join(body) + f"\n    return [{out}]\n"
-    scope = {"T": float, "gsqrt": _sqrt}
-    exec(compile(src, f"<fd_program {key}>", "exec"), scope)
-    return scope["fd"]
+    return _straight_line(em, qdd, ("cs", "ss", "qd", "u", "fe"), f"fd_program {key}")
+
+
+_KNOT_PARAMS = ("q", "qd", "u", "xn", "r3", "fe")
+
+
+def _knot_inputs(em, nq):
+    """The symbolic (q, qd, u, xn, r3, fe) channel lists of a knot."""
+    return [_inputs(em, name, n) for name, n in zip(_KNOT_PARAMS, (nq, nq, nq, 2 * nq, 3, 6))]
+
+
+@functools.lru_cache(maxsize=None)
+def kkt_program(key: str, weights: tuple, dt: float, integrator_type: int):
+    """kkt_knot_channels_structured of the plant registered under `key`,
+    with the cost weights (CostParams' fields in order) and dt folded as
+    the trace folds them, as one straight-line Python function kkt(q, qd,
+    u, xn, r3, fe) -> (A, B, c, Q, qv, R_diag, rv) on numpy or torch
+    channels, each a channel list as the trace returns it: the trace's
+    lines in the order the trace runs them, so every value equals the
+    traced call's bit for bit, without the channel algebra's dispatch at
+    every call."""
+    cd = _get_cd(key)
+    em = Emitter()
+    out = kkt_knot_channels_structured(cd, key, CostParams(*weights), *_knot_inputs(em, cd.nq),
+                                       dt, integrator_type, None)
+    return _straight_line(em, out, _KNOT_PARAMS, f"kkt_program {key}")
+
+
+@functools.lru_cache(maxsize=None)
+def merit_program(key: str, weights: tuple, dt: float, integrator_type: int):
+    """ops/merit_fast.py::_knot_parts of a non-terminal knot (tracking
+    weight q_cost) as kkt_program is the KKT's: merit(q, qd, u, xn, r3, fe)
+    -> (cost, ucost, defect), equal to the trace's bit for bit."""
+    cd = _get_cd(key)
+    em = Emitter()
+    cp = CostParams(*weights)
+    out = _knot_parts(cd, key, cp, *_knot_inputs(em, cd.nq), dt, integrator_type, cp.q_cost)
+    return _straight_line(em, out, _KNOT_PARAMS, f"merit_program {key}")
+
+
+def run_on_channels(program, inputs):
+    """A straight-line program on lists of tensor channels: on the card on
+    the tensors themselves, on the CPU on numpy views of them (the same
+    operations on the same float type, so the values equal torch channels'
+    bit for bit, without torch's cost a call on small columns) with the
+    channels it returns handed back as tensors."""
+    if inputs[0][0].device.type != "cpu":
+        return program(*inputs)
+
+    def back(ch):
+        if isinstance(ch, (list, tuple)):
+            return type(ch)(back(c) for c in ch)
+        return torch.from_numpy(ch) if isinstance(ch, np.ndarray) else ch
+    return back(program(*[[c.numpy() for c in part] for part in inputs]))
 
 
 def _knot_args(em, nq):

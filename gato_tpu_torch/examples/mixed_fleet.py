@@ -39,13 +39,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 from dataclasses import replace
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import card_line
 from ..api.common import figure8, rk4_step
 from ..api.config import DEFAULT_SOLVER_PARAMS, INDY7_START_CONFIGS
 from ..dynamics.algorithms import ee_position
@@ -280,9 +280,7 @@ def main(cycles=60, B=8, N=8, dt=0.01, save=None, device_time=False, device="cud
 def _save(path, out):
     """Merge `out` into the JSON record at path under N<N>_B<B>, with the
     card's name and power limit."""
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_line("cuda")
     rec = {}
     if os.path.exists(path):
         with open(path) as f:

@@ -40,11 +40,11 @@ CODES = {"one": 0, "crba": 1}
 
 
 def _numpy_cos(x):
-    return torch.cos(torch.from_numpy(x)).numpy()
+    return torch.cos(torch.from_numpy(np.asarray(x))).numpy()[()]
 
 
 def _numpy_sin(x):
-    return torch.sin(torch.from_numpy(x)).numpy()
+    return torch.sin(torch.from_numpy(np.asarray(x))).numpy()[()]
 
 
 def rk4_channels(fd, q, qd, u, fe, dt, substeps, cos=ms.cos, sin=ms.sin):
@@ -80,16 +80,20 @@ def rk4_plain(model: RobotModel, x, u, dt: float, f_ext=None,
     """rk4_channels on the columns of x (B, nx), u (B, nu), f_ext (B, 6),
     the forward dynamics the channel trace's straight-line program
     (dynamics/codegen.py::fd_program). On the CPU the channels are numpy
-    views of the columns, cos and sin still torch's: the same operations on
-    the same float type, so the values equal torch channels' bit for bit,
-    without torch's cost a call on these small columns."""
+    views of the columns (of one lane numpy scalars, on which numpy's cost
+    an operation is several times lower than on one-element arrays), cos
+    and sin still torch's: the same operations on the same float type, so
+    the values equal torch channels' bit for bit, without torch's cost a
+    call on these small columns."""
     from ..dynamics.codegen import fd_program
 
     fd = fd_program(model.key, f_ext is not None)
     nq = model.nq
     if x.device.type == "cpu":
+        lanes = slice(None) if x.shape[0] > 1 else 0
+
         def col(t, i):
-            return t[:, i].numpy()
+            return t.numpy()[lanes, i]
         trig = dict(cos=_numpy_cos, sin=_numpy_sin)
     else:
         def col(t, i):
@@ -100,7 +104,7 @@ def rk4_plain(model: RobotModel, x, u, dt: float, f_ext=None,
                          [col(x, nq + i) for i in range(nq)],
                          [col(u, i) for i in range(nq)], fe, dt, substeps, **trig)
     if x.device.type == "cpu":
-        return torch.from_numpy(np.stack(q + qd, 1))
+        return torch.from_numpy(np.stack(q + qd, -1).reshape(x.shape[0], -1))
     return torch.stack(q + qd, 1)
 
 

@@ -10,6 +10,8 @@ the CUDA `knot_kkt` function.
 
 from __future__ import annotations
 
+from dataclasses import astuple
+
 import torch
 
 from ..dynamics import mathshim as ms
@@ -262,6 +264,8 @@ def setup_kkt_batched(model: RobotModel, cp: CostParams, X, U, x_s, ref,
                       f_ext, dt, integrator_type: int = 2) -> KKTSystem:
     """Batched KKT setup: X (B,N,nx), U (B,N-1,nu) -> KKTSystem with (B, ...)
     leading axes."""
+    from ..dynamics.codegen import kkt_program, run_on_channels
+
     cd = _get_cd(model.key)
     nq = cd.nq
     nx = 2 * nq
@@ -274,15 +278,14 @@ def setup_kkt_batched(model: RobotModel, cp: CostParams, X, U, x_s, ref,
     r3m = ref[:, :-1, :3].reshape(M, 3)
     fe_arr = f_ext[:, None, :].expand(B, N - 1, 6).reshape(M, 6)
     q = [xk[:, i] for i in range(nq)]
-    like = q[0]
-
-    A_ch, B_ch, c_ch, Q_ch, qv, R_diag, rv = kkt_knot_channels_structured(
-        cd, model.key, cp, q, [xk[:, nq + i] for i in range(nq)],
-        [uk[:, i] for i in range(nq)], [xnm[:, i] for i in range(nx)],
-        [r3m[:, i] for i in range(3)], [fe_arr[:, i] for i in range(6)], dt,
-        integrator_type, like)
-    return assemble_kkt(model, cp, (A_ch, B_ch, c_ch, Q_ch, qv, R_diag, rv),
-                        like, X, x_s, ref)
+    inputs = (q, [xk[:, nq + i] for i in range(nq)], [uk[:, i] for i in range(nq)],
+              [xnm[:, i] for i in range(nx)], [r3m[:, i] for i in range(3)],
+              [fe_arr[:, i] for i in range(6)])
+    # the trace's straight-line program, equal to kkt_knot_channels_structured
+    # bit for bit (dynamics/codegen.py::kkt_program)
+    channels = run_on_channels(kkt_program(model.key, astuple(cp), float(dt), integrator_type),
+                               inputs)
+    return assemble_kkt(model, cp, channels, q[0], X, x_s, ref)
 
 
 def assemble_kkt(model, cp, channels, like, X, x_s, ref) -> KKTSystem:

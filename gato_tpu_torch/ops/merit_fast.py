@@ -14,6 +14,7 @@ and never wins a line search.
 from __future__ import annotations
 
 import functools
+from dataclasses import astuple
 
 import torch
 
@@ -107,6 +108,8 @@ def merit_alphas_batched(model: RobotModel, cp: CostParams, X, U, dZX, dZU,
     (B,6), mu (B,); alphas a sequence of floats. An alpha of 0 evaluates
     X, U themselves (never X + 0 dZX, which a non-finite step would poison).
     """
+    from ..dynamics.codegen import merit_program, run_on_channels
+
     cd = _get_cd(model.key)
     nq = cd.nq
     B, N, nx = X.shape
@@ -122,11 +125,13 @@ def merit_alphas_batched(model: RobotModel, cp: CostParams, X, U, dZX, dZU,
     r3 = ref[:, None, :-1, :3].expand(B, A, N - 1, 3).reshape(M, 3)
     fe = f_ext[:, None, None, :].expand(B, A, N - 1, 6).reshape(M, 6)
 
-    cost, ucost, defect = _knot_parts(
-        cd, model.key, cp, [xk[:, i] for i in range(nq)],
-        [xk[:, nq + i] for i in range(nq)], [uk[:, i] for i in range(nq)],
-        [xn[:, i] for i in range(nx)], [r3[:, i] for i in range(3)],
-        [fe[:, i] for i in range(6)], dt, integrator_type, cp.q_cost)
+    inputs = ([xk[:, i] for i in range(nq)], [xk[:, nq + i] for i in range(nq)],
+              [uk[:, i] for i in range(nq)], [xn[:, i] for i in range(nx)],
+              [r3[:, i] for i in range(3)], [fe[:, i] for i in range(6)])
+    # the trace's straight-line program, equal to _knot_parts bit for bit
+    # (dynamics/codegen.py::merit_program)
+    cost, ucost, defect = run_on_channels(
+        merit_program(model.key, astuple(cp), float(dt), integrator_type), inputs)
 
     xT = Xc[:, :, -1].reshape(B * A, nx)
     rT = ref[:, None, -1, :3].expand(B, A, 3).reshape(B * A, 3)

@@ -77,12 +77,15 @@ def capturable_inverse():
 def spd_inv(M):
     """Inverse of SPD blocks by Cholesky. A block that is not positive
     definite (a diverged problem) does not raise: its own inverse is
-    meaningless and the other blocks keep theirs, so one problem cannot
-    stop the batch."""
-    L, _ = torch.linalg.cholesky_ex(M)
-    if not _TRIANGULAR[0]:
-        return torch.cholesky_inverse(L)
+    meaningless, so it is NaN, as the JAX package's Cholesky gives it (the
+    identity stands in for its factor, on which torch.cholesky_inverse
+    raises on the CPU), and the other blocks keep theirs, so one problem
+    cannot stop the batch."""
+    L, info = torch.linalg.cholesky_ex(M)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(M.shape)
+    if not _TRIANGULAR[0]:
+        failed = (info != 0)[..., None, None]
+        return torch.where(failed, torch.nan, torch.cholesky_inverse(torch.where(failed, eye, L)))
     y = torch.linalg.solve_triangular(L, eye, upper=False)
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 

@@ -154,7 +154,8 @@ def test_port_never_imports_jax():
             "'ops.integrators', 'ops.merit', 'ops.btd_solve', 'api.interface', "
             "'api.mpc', 'api.force_estimator', 'api.force_estimator_device', "
             "'api.rollout', 'api.experiment_runner', 'examples.pickplace_device', "
-            "'parallel.fleet', 'examples.mixed_fleet'):\n"
+            "'parallel.fleet', 'examples.mixed_fleet', 'examples.parity_fig8', "
+            "'examples.fig8_tracking', 'examples.benchmark_fig8', 'examples.bsqp_example'):\n"
             "    assert 'gato_tpu_torch.' + name in names, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gato_tpu' or m.startswith('gato_tpu.')]\n"

@@ -3,8 +3,14 @@ counterparts on identical numpy inputs (float64, CPU): the KKT setup
 (ops/kkt_fast.py), Schur condensation and dz recovery (ops/schur.py), PCG
 (ops/pcg.py), the merit sweep (ops/merit_fast.py) and the line search
 (ops/linesearch.py). These compose sqp_iter_reference, the plain version
-of the CUDA solve kernel.
+of the CUDA solve kernel. The KKT setup and the merit sweep run their
+channel traces' straight-line programs (dynamics/codegen.py::kkt_program,
+merit_program; on the CPU on numpy views of the channels), held here equal
+to the traces bit for bit.
 """
+
+import contextlib
+from dataclasses import astuple
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +22,10 @@ from gato_tpu.ops import linesearch as jls
 from gato_tpu.ops import merit_fast as jmerit
 from gato_tpu.ops import pcg as jpcg
 from gato_tpu.ops import schur as jschur
+from gato_tpu_torch.dynamics import codegen
 from gato_tpu_torch.ops import kkt_fast, linesearch, merit_fast, pcg, schur
+from gato_tpu_torch.ops.cost import CostParams
+from gato_tpu_torch.robots.model import load_robot
 from torch_port_helpers import DEFAULT_COST, costs, models, t64
 
 B, N, DT = 3, 10, 0.01
@@ -126,3 +135,67 @@ def test_line_search_matches_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-15, atol=0)
     np.testing.assert_array_equal(tout[3].numpy(), [0.25, 0.5, -1.0])
     np.testing.assert_array_equal(tout[0][2].numpy(), p["X"][2])
+
+
+def test_kkt_and_merit_programs_equal_the_traces_bit_for_bit():
+    """kkt_program and merit_program on numpy channels, on torch channels
+    (as on the card) and through run_on_channels (as setup_kkt_batched and
+    merit_alphas_batched call them) against kkt_knot_channels_structured
+    and _knot_parts on torch channels, the same columns: both plants, float32 and float64, every limit cost on,
+    each integrator on indy7 in float64 (the trapezoidal one elsewhere):
+    every channel equal bit for bit, structural zeros and constants where
+    the trace has them."""
+    cp = CostParams(q_cost=2.0, qd_cost=1e-2, u_cost=2e-6, N_cost=50.0, q_lim_cost=0.01,
+                    vel_lim_cost=0.3, ctrl_lim_cost=0.2)
+    rng = np.random.default_rng(25)
+    cases = [(r, d, 2) for r in ("indy7", "iiwa14") for d in (torch.float32, torch.float64)]
+    cases += [("indy7", torch.float64, 0), ("indy7", torch.float64, 1)]
+    for robot, dtype, itype in cases:
+        m = load_robot(robot, dtype, "cpu")
+        nq, M = m.nq, 7
+        cols = [torch.tensor(rng.uniform(-a, a, (M, n)), dtype=dtype)
+                for a, n in ((1.5, nq), (1.5, nq), (20.0, nq), (1.5, 2 * nq), (1.0, 3), (5.0, 6))]
+        chans = [[c[:, i] for i in range(c.shape[1])] for c in cols]
+        views = [[c.numpy() for c in part] for part in chans]
+        cd = merit_fast._get_cd(m.key)
+        pairs = ((codegen.kkt_program, kkt_fast.kkt_knot_channels_structured(
+                      cd, m.key, cp, *chans, DT, itype, chans[0][0])),
+                 (codegen.merit_program, merit_fast._knot_parts(
+                      cd, m.key, cp, *chans, DT, itype, cp.q_cost)))
+        for program, want in pairs:
+            prog = program(m.key, astuple(cp), DT, itype)
+
+            def same(w, g, where):
+                if isinstance(w, (list, tuple)):
+                    assert len(w) == len(g), where
+                    for k, (a, b) in enumerate(zip(w, g)):
+                        same(a, b, f"{where}[{k}]")
+                elif isinstance(w, torch.Tensor):
+                    if isinstance(g, np.ndarray):
+                        g = torch.from_numpy(g)
+                    assert isinstance(g, torch.Tensor) and torch.equal(w, g), where
+                else:
+                    assert w == g, where
+            where = f"{program.__name__} {robot} {dtype} integrator {itype}"
+            same(want, prog(*views), where + " on numpy channels")
+            same(want, prog(*chans), where + " on torch channels")
+            same(want, codegen.run_on_channels(prog, chans), where + " through run_on_channels")
+
+
+def test_spd_inv_leaves_a_failed_block_to_itself():
+    """A block that is not positive definite (here all zeros, whose factor
+    has a zero pivot: torch.cholesky_inverse raises on it on the CPU) does
+    not stop the batch: in either form of the inverse the other blocks
+    equal their inverses alone bit for bit, and in the default form the
+    failed block's inverse is NaN, as the JAX package's Cholesky gives it."""
+    rng = np.random.default_rng(26)
+    a = rng.uniform(-1, 1, (3, 12, 12))
+    M = t64(a @ a.transpose(0, 2, 1) + 12 * np.eye(12))
+    M[1] = 0.0
+    for form in (contextlib.nullcontext, schur.capturable_inverse):
+        with form():
+            inv = schur.spd_inv(M)
+            alone = schur.spd_inv(M[[0, 2]])
+        assert torch.equal(inv[[0, 2]], alone)
+        assert torch.allclose(inv[0] @ M[0], torch.eye(12, dtype=torch.float64), atol=1e-12)
+    assert torch.isnan(schur.spd_inv(M)[1]).all()

@@ -25,9 +25,20 @@ a float64 loop's scan carry cannot hold, so its fe_init is replaced for the
 call by one in float64, the dtype the port's rollouts take from their
 inputs.
 
+One cell of the fig-8 parity grid (N=8, B=4, 12 cycles) runs through both
+tools, the port's gato_tpu_torch/examples/parity_fig8.py and the JAX
+package's tools/parity_fig8.py, in float64: each tool's
+closed_loop_rollout is wrapped to take the float64 model and its other
+float32 inputs cast up (as fe_init is replaced above); every cycle within
+RTOL, and the two records' errors within their last rounded digit.
+
 The JAX rollouts call their solve and dynamics compiled once each
 (torch_port_helpers.jax_in_pieces, the `pieces` fixture).
 """
+
+import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +54,7 @@ from gato_tpu.solver.types import BSQPSettings as JSettings
 from gato_tpu.solver.types import HyperParams as JHyperParams
 from gato_tpu_torch.api import rollout as R
 from gato_tpu_torch.api.mpc import add_pendulum
+from gato_tpu_torch.examples import parity_fig8
 from gato_tpu_torch.interop import hyper_from_numpy
 from gato_tpu_torch.ops.cuda_solve import sqp_iter_reference, sqp_solve_chained
 from gato_tpu_torch.solver.types import BSQPSettings
@@ -214,3 +226,47 @@ def test_device_exit_equals_host_exit(solve_ratio):
         assert (pcg[0, :2] == 0).all() and (pcg[1:] == 0).all() and (step == 0).all()
     else:
         assert (pcg[1:, 2:] > 0).all() and (step[0, 2:] != 0).all()
+
+
+def test_parity_cell_matches_the_jax_tool(setup, pieces, monkeypatch):
+    """tools/parity_fig8.py's run_cell and the port's at N=8, B=4 over 12
+    cycles, DEFAULT_SOLVER_PARAMS, 4 plant substeps a cycle: each tool
+    builds its inputs in float32 (the windows, the seeded hypotheses, the
+    start, costs, hyperparameters and dt) and hands them to its
+    closed_loop_rollout, here wrapped to run it in float64 (the model
+    loaded in float64, every other input cast up). The x, EE and control
+    trajectories agree within RTOL; each record's errors (rounded to 5
+    decimals) within 1e-5."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_parity_fig8", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "parity_fig8.py"))
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    (jm, tm), got = setup[0]["indy7"], {}
+    port_rollout = R.closed_loop_rollout
+
+    def up(tree):
+        return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
+
+    def jax_f64(model, sim_model, settings, cp, hp, x0, refs, f_ext, dt, **kw):
+        got["jax"] = jax_rollout(jm, jm, settings, up(cp), up(hp), up(x0), up(refs),
+                                 up(f_ext), jnp.float64(dt), **kw)
+        return got["jax"]
+
+    def port_f64(model, sim_model, settings, cp, hp, x0, refs, f_ext, dt, **kw):
+        cp = dataclasses.replace(cp, **{f.name: float(np.float32(getattr(cp, f.name)))
+                                        for f in dataclasses.fields(cp)})
+        hp = type(hp)(*(getattr(hp, f.name).double() for f in dataclasses.fields(hp)))
+        got["port"] = port_rollout(tm, tm, settings, cp, hp, x0.double(), refs.double(),
+                                   f_ext.double(), dt, **kw)
+        return got["port"]
+
+    monkeypatch.setattr("gato_tpu.api.rollout.closed_loop_rollout", jax_f64)
+    monkeypatch.setattr(R, "closed_loop_rollout", port_f64)
+    want = jtool.run_cell(8, 4, 12)
+    rec = parity_fig8.run_cell(8, 4, 12, device="cpu")
+    for name, g, w in zip(("x_sim", "ee", "u"), got["port"], got["jax"]):
+        close(g, w, name)
+    assert rec.keys() == want.keys() and rec["cycles"] == want["cycles"] == 12
+    for k in ("avg_err_m", "max_err_m", "avg_err_all_m"):
+        assert abs(rec[k] - want[k]) <= 1e-5, (k, rec[k], want[k])

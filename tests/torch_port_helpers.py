@@ -12,9 +12,11 @@ dynamics (fd: tens of thousands of operations) and the solve is traced
 and compiled again in every program, minutes of each test file on the
 CPU. Each piece is traced once for its input signature and the same
 trace gives its output shapes and its compiled program (_piece), kept
-while the test file runs. The functions are the JAX package's own; only
-where they are compiled changes (the three rollouts' outputs agree with
-the inlined programs' to 1e-13 of the largest value in float64).
+while the test file runs (a solve) or while the worker process lives (a
+knot's or a plant step's piece). The functions are the JAX package's
+own; only where they are compiled changes (the three rollouts' outputs
+agree with the inlined programs' to 1e-13 of the largest value in
+float64).
 
 Importing this module sets torch to one intra-op thread: pytest-xdist's
 workers share the machine's cores, and torch's thread pool over the plain
@@ -165,8 +167,12 @@ def _fd_tangent(primals, tangents):
 
 
 # {(piece, static arguments, input signature): (compiled piece, its output
-# shapes)}, kept while one test file runs (jax_in_pieces empties it when
-# another file's test asks): one trace and one compile each
+# shapes)}: one trace and one compile each. A whole solve's program is kept
+# while one test file runs (jax_in_pieces drops it when another file's test
+# asks); the pieces of one knot or one plant step (fd and its JVP, sim_step,
+# the KKT's linearize and knot cost, the merit's knot terms: small programs,
+# a few a plant) for the worker's life, so that each later test file of the
+# worker calls them without tracing and lowering them again
 _PIECES = {}
 _PIECES_FILE = [None]
 
@@ -245,21 +251,36 @@ def _knot_cost_grad_hess(model, cp, x, u, ref6, terminal):
 
 
 _JAX_KNOT_TERMS = jmerit._knot_terms
+KNOT_CHUNK = 256
 
 
 def _knot_terms(cd, key, cp, q, qd, u, xn, r3, fe, dt, integrator_type):
-    """The merit's knot terms on their (M,) channels, compiled once for
-    each M."""
-    return _on_host(("knot_terms", key, integrator_type),
-                    lambda *a: _JAX_KNOT_TERMS(cd, key, *a, integrator_type),
-                    cp, q, qd, u, xn, r3, fe, dt)
+    """The merit's knot terms on their (M,) channels, KNOT_CHUNK channels a
+    call, the last chunk padded with its last channel: a channel's terms
+    depend on its own values alone, so one piece compiled for KNOT_CHUNK
+    channels serves every M (every batch, horizon and line search) of a
+    plant."""
+    M = q[0].shape[0]
+    pad = -M % KNOT_CHUNK
+
+    def padded(c):
+        return jnp.concatenate([c, jnp.broadcast_to(c[-1:], (pad,))]) if pad else c
+
+    channels = [[padded(c) for c in group] for group in (q, qd, u, xn, r3, fe)]
+    parts = [_on_host(("knot_terms", key, integrator_type),
+                      lambda *a: _JAX_KNOT_TERMS(cd, key, *a, integrator_type),
+                      cp, *[[c[s:s + KNOT_CHUNK] for c in group] for group in channels], dt)
+             for s in range(0, M + pad, KNOT_CHUNK)]
+    return tuple(jnp.concatenate(terms)[:M] for terms in zip(*parts))
 
 
 def _pieces_for_this_file():
-    """Empty _PIECES when another test file asks than the last one."""
+    """Drop the whole solves' programs from _PIECES when another test file
+    asks than the last one."""
     test_file = os.environ.get("PYTEST_CURRENT_TEST", "").split("::")[0]
     if test_file != _PIECES_FILE[0]:
-        _PIECES.clear()
+        for sig in [s for s in _PIECES if isinstance(s[0], tuple) and s[0][0] == "solve_batched"]:
+            del _PIECES[sig]
         _PIECES_FILE[0] = test_file
 
 
@@ -268,12 +289,13 @@ def jax_kkt_in_pieces(monkeypatch):
     (gato_tpu/ops/kkt.py::setup_kkt, the solve's) calls its per-knot
     linearize and knot_cost_grad_hess compiled on their own, once for a
     knot's shapes (_piece; under the solve's vmaps once for each knot), and
-    its merit (gato_tpu/ops/merit_fast.py) its knot terms, once for each
-    batch of knots. Inlined, the dynamics and their derivatives are traced
+    its merit (gato_tpu/ops/merit_fast.py) its knot terms, once for a
+    chunk of KNOT_CHUNK knots. Inlined, the dynamics and their derivatives are traced
     and compiled again in every solve program; a knot's shapes do not
     depend on N or B, so every solve of a plant shares them (a test's
     solves at two horizons: about a third less time, and the merit's
-    pieces a sixth less again). The outputs equal the inlined solve's to about
+    pieces a sixth less again; the merit's chunks share one piece a plant
+    across batches, horizons and line searches). The outputs equal the inlined solve's to about
     1e-12 of its values."""
     _pieces_for_this_file()
     monkeypatch.setattr(jkkt, "linearize", _linearize)
